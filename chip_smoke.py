@@ -9,14 +9,13 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 Phases (one JSON line each):
 
 1. the card (``nvidia-smi`` name and power limit) and the build of every
-   CUDA source under ``src/repro_torch/csrc`` (one nvcc each, started
-   together);
+   CUDA source under ``src/repro_torch/csrc``;
 2. every kernel against its plain PyTorch version on the same CUDA
    tensors (all outputs ``torch.equal``), and the whole fleet slice at a
    small size on the card against the same run on the CPU (identical
    state, perf and stats);
-3. the main path: ``run_fleet_scenario`` at 10,000 leaves and 1,000
-   tenants for 21 epochs on the card, with every launch count set to 0
+3. the main path: ``run_fleet_scenario`` on ``FLEET_10K`` (10,000 leaves,
+   1,000 tenants, 21 epochs) on the card, with every launch count set to 0
    just before and read just after; the counts must be nonzero and the
    clearing kernel must run once per cascade wave; orders and transfers
    are held to the committed ``BENCH_fig06.json`` row;
@@ -31,7 +30,6 @@ the script exits nonzero and prints no result.
 """
 from __future__ import annotations
 
-import concurrent.futures
 import json
 import pathlib
 import subprocess
@@ -74,10 +72,8 @@ def phase_card_and_build():
     from repro_torch.kernels import build
     names = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
-        futs = {n: ex.submit(build.build, n) for n in names}
-        for n, f in futs.items():
-            f.result()            # raises on a failed build
+    for name in names:
+        build.build(name)         # raises on a failed build
     emit({"phase": "build", "card": card, "kernels": names,
           "build_s": {n: round(build.BUILD_SECONDS.get(n, 0.0), 3)
                       for n in names},
@@ -247,19 +243,13 @@ def phase_small_slice(dev):
 
 
 # ------------------------------------------------------------------ phase 3
-MAIN_CFG = dict(regime="heavy", n_leaves=10000, n_training=384,
-                n_inference=384, n_batch=232, duration_s=1200.0,
-                tick_s=60.0, seed=1, k=16, b_max=8192, per_tenant_bids=8,
-                alone="none")
-
-
 def phase_main_path(dev):
     import numpy as np
     import torch
     from repro_torch.kernels.market_clear import kernel as K
-    from repro_torch.sim.simulator import FleetScenarioConfig, \
+    from repro_torch.sim.simulator import FLEET_10K, FleetScenarioConfig, \
         run_fleet_scenario
-    cfg = FleetScenarioConfig(**MAIN_CFG)
+    cfg = FleetScenarioConfig(**FLEET_10K)
     K.LAUNCHES = 0
     t0 = time.perf_counter()
     res = run_fleet_scenario(cfg, device=dev)
@@ -277,7 +267,7 @@ def phase_main_path(dev):
     matches = (orders == COMMITTED_10K["orders"]
                and transfers == COMMITTED_10K["transfers"]
                and len(res.epoch_s) == COMMITTED_10K["epochs"])
-    emit({"phase": "main_path", "config": MAIN_CFG,
+    emit({"phase": "main_path", "config": FLEET_10K,
           "epochs": len(res.epoch_s), "orders": orders,
           "transfers": transfers, "committed": COMMITTED_10K,
           "matches_committed": bool(matches), "waves": waves,
@@ -346,9 +336,10 @@ def phase_kernels_line(res, launches):
     from repro_torch.kernels.market_clear import kernel as K
     from repro_torch.kernels.market_clear import ref as R
     from repro_torch.market_torch.engine import build_tree
+    from repro_torch.sim.simulator import FLEET_10K
     est = res.engine_state
-    tree = build_tree(MAIN_CFG["n_leaves"])
-    k = MAIN_CFG["k"]
+    tree = build_tree(FLEET_10K["n_leaves"])
+    k = FLEET_10K["k"]
     n_seg = est["seg_start"].shape[0] - 1
     # the main path's last clearing inputs: its final book and owners
     aggs = R._prefix_aggregates(est["order"], est["sorted_gseg"],
@@ -410,7 +401,7 @@ def main() -> None:
     (OUT / "chip_smoke.jsonl").write_text("\n".join(_LINES) + "\n")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": 1}}), flush=True)
 
 
 if __name__ == "__main__":

@@ -7,8 +7,8 @@
 The reference fuses the epoch into one donated jitted dispatch; here it
 is a plain method over the same building blocks in the same order, and
 ``drive`` is a host loop.  The per-epoch stats stay device counters
-until the run ends.  On CUDA each timed epoch ends in
-``torch.cuda.synchronize()``.
+until the run ends.  On CUDA each epoch ends in
+``torch.cuda.synchronize()`` so that its wall time is the card's.
 """
 from __future__ import annotations
 
@@ -67,13 +67,12 @@ class EpochRunner:
         if self.eng.device.type == "cuda":
             torch.cuda.synchronize(self.eng.device)
 
-    def drive(self, params, fleet_state, duration_s: float,
-              tick_s: float, time_epochs: bool = True
+    def drive(self, params, fleet_state, duration_s: float, tick_s: float
               ) -> Tuple[dict, List[float], Dict[str, int]]:
         """Run epochs over [0, duration_s] at tick_s cadence from the
         market's engine state, then publish the final state and the
-        accumulated stats back onto the market.  ``time_epochs=False``
-        skips the per-epoch synchronisation and returns no timings."""
+        accumulated stats back onto the market.  Returns the fleet
+        state, each epoch's wall seconds and the stats."""
         market, rtype = self.market, self.rtype
         est = dict(market.states[rtype])
         est["floor"] = tuple(est["floor"])
@@ -86,11 +85,9 @@ class EpochRunner:
             t0 = time.perf_counter()
             est, fleet_state, stats = self.epoch(params, est, fleet_state,
                                                  stats, t)
-            if time_epochs:
-                self._sync()
-                epoch_s.append(time.perf_counter() - t0)
+            self._sync()
+            epoch_s.append(time.perf_counter() - t0)
             t += tick_s
-        self._sync()
         market.states[rtype] = est
         market.now = max(market.now, t - tick_s)
         host_stats = {k: int(stats[k]) for k in STAT_KEYS}

@@ -120,6 +120,17 @@ class FleetScenarioConfig:
         return self.n_training + self.n_inference + self.n_batch
 
 
+# The paper's scale claim as one scenario: the 10k case of
+# benchmarks/fig06_contention.py SCALE_CASES (the committed
+# fig06/scale/fused_epoch/backend=jnp/n=10000 row) -- 1,000 tenants,
+# 21 epochs, a 16,384-slot bid table -- with perf only (its engine-sampled
+# retention denominator is not ported; orders and transfers do not use it).
+FLEET_10K = dict(regime="heavy", n_leaves=10000, n_training=384,
+                 n_inference=384, n_batch=232, duration_s=1200.0,
+                 tick_s=60.0, seed=1, k=16, b_max=8192, per_tenant_bids=8,
+                 alone="none")
+
+
 @dataclass
 class FleetRunResult:
     perf: np.ndarray                 # (n_tenants,) multi-tenant run
@@ -167,16 +178,14 @@ def _seed_floors(market, topo) -> None:
         market.set_floor(root, ON_DEMAND.get(rtype, 2.0) * 0.7)
 
 
-def _drive_fleet_fused(fleet, params, market, fcfg: FleetScenarioConfig,
-                       rtype: str = "H100", time_epochs: bool = True):
+def _drive_fleet_fused(fleet, params, market, fcfg: FleetScenarioConfig):
     """The multi-tenant fleet loop (``sim/epoch.py``).  Returns
     ``(fleet_state, epoch_s, bids_clipped)``."""
     from repro_torch.sim.epoch import EpochRunner
-    runner = EpochRunner(market, fleet, rtype)
+    runner = EpochRunner(market, fleet)
     state = fleet.init_state(params)
-    state, epoch_s, stats = runner.drive(
-        params, state, fcfg.duration_s, fcfg.tick_s,
-        time_epochs=time_epochs)
+    state, epoch_s, stats = runner.drive(params, state, fcfg.duration_s,
+                                         fcfg.tick_s)
     return state, epoch_s, stats["bids_clipped"]
 
 

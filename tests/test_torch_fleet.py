@@ -2,7 +2,8 @@
 reference ``repro.sim``: the fleet functions elementwise, the whole
 slice (``run_fleet_scenario``) at a small size, a run carried across
 from the reference mid-way, device resolution, and the import rule
-(the port and ``chip_smoke.py`` import neither ``jax`` nor ``repro``).
+(the port, ``chip_smoke.py`` and ``profile_epoch.py`` import neither
+``jax`` nor ``repro``).
 
 JAX compiles are the cost here, so the reference run and its jitted
 epoch are built once per module and shared.
@@ -288,17 +289,18 @@ def test_engine_alone_modes_not_ported():
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "profile_epoch.py"]
     return files
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Every module of the port, and chip_smoke.py, imports no ``jax``
-    (or ``jaxlib``) and nothing of the ``repro`` package."""
+    """Every module of the port, chip_smoke.py and profile_epoch.py
+    import no ``jax`` (or ``jaxlib``) and nothing of the ``repro``
+    package."""
     banned = {"jax", "jaxlib", "repro"}
     bad = []
     files = _port_files()
-    assert (ROOT / "chip_smoke.py").exists()
+    assert all(path.exists() for path in files)
     assert len(files) > 10
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
