@@ -9,24 +9,44 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 Phases (one JSON line each):
 
 1. the card (``nvidia-smi`` name and power limit) and the build of every
-   CUDA source under ``src/repro_torch/csrc``;
+   CUDA source under ``src/repro_torch/csrc``, one nvcc per source, all
+   started together;
 2. every kernel against its plain PyTorch version on the same CUDA
-   tensors (all outputs ``torch.equal``), and the whole fleet slice at a
-   small size on the card against the same run on the CPU (identical
-   state, perf and stats);
-3. the main path: ``run_fleet_scenario`` on ``FLEET_10K`` (10,000 leaves,
-   1,000 tenants, 21 epochs) on the card, with every launch count set to 0
-   just before and read just after; the counts must be nonzero and the
-   clearing kernel must run once per cascade wave; orders and transfers
-   are held to the committed ``BENCH_fig06.json`` row;
-4. a ``kernels`` line: per kernel, its launches on the main path, its
-   time per call (CUDA events), the plain version's time on the same
-   inputs, and the least time the card could take (bytes over 3.35 TB/s
-   or operations over 67 TFLOP/s, whichever is larger).
+   tensors at the shapes its main path gives it (market_clear
+   ``torch.equal``; decode_attention within 2e-5 in float32 and 3e-2 in
+   bfloat16; moe_route indices equal and weights within rtol 1e-5 /
+   atol 1e-6), the whole fleet slice at a small size on the card against
+   the same run on the CPU (identical state, perf and stats), and the
+   reduced OLMoE server on the card against the same run on the CPU in
+   float32 (the same tokens, the last logits within 1e-4);
+3. the fleet main path: ``run_fleet_scenario`` on ``FLEET_10K`` (10,000
+   leaves, 1,000 tenants, 21 epochs), with every launch count set to 0
+   just before and read just after; the clearing kernel must run once
+   per cascade wave; orders and transfers are held to the committed
+   ``BENCH_fig06.json`` row;
+4. the serving main path: ``repro_torch.launch.serve.serve`` on
+   ``olmoe-1b-7b`` at full width (bfloat16, random weights from
+   ``torch.Generator`` seed 0), 8 requests of 1,024-token prompts, 32 new
+   tokens each, 4 slots, with every launch count set to 0 just before
+   and read just after; every request must get 32 tokens, the logits
+   must be finite, decode_attention must run 16 times a decode step and
+   moe_route 16 times a prefill or decode step; it reports time to first
+   token, decode ms per step and output tokens per second;
+5. a ``kernels`` line: per kernel, its launches on its main path, its
+   time per call, the plain version's time and one PyTorch library
+   call's time on the same inputs, and the least time the card could
+   take (bytes over 3.35 TB/s, or operations over the rate for their
+   type, whichever is larger).  Times are CUDA events: for the two
+   model kernels over calls captured in a CUDA graph (device time; the
+   eager times, host enqueue included, stand beside them as
+   ``*_ms_eager``), for market_clear over eager calls (its plain version
+   reads the device, so it cannot be captured; the kernel's 0.13 ms
+   exceeds its enqueue time).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 nonzero before it; without CUDA, or without the repository beside it,
-the script exits nonzero and prints no result.
+the script exits nonzero and prints no result.  Float32 products run
+without TF32 (both ``allow_tf32`` switches off).
 """
 from __future__ import annotations
 
@@ -44,6 +64,10 @@ OUT = HERE / "chiprun_out"
 COMMITTED_10K = {"orders": 52310, "transfers": 14123, "epochs": 21}
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM, float32 outside tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM, bf16 tensor cores, dense
+SERVE_ARCH = "olmoe-1b-7b"
+# the serving main path: 8 requests of 1,024 tokens, 32 new, 4 slots
+SERVE_FULL = dict(requests=8, prompt_len=1024, max_new=32, slots=4)
 
 _LINES = []
 
@@ -59,6 +83,23 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def _kernel_modules():
+    """name -> wrapper module of every kernel (each has ``LAUNCHES``)."""
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.market_clear import kernel as MK
+    from repro_torch.kernels.moe_route import kernel as RK
+    return {"market_clear": MK, "decode_attention": DK, "moe_route": RK}
+
+
+def _reset_launches() -> None:
+    for mod in _kernel_modules().values():
+        mod.LAUNCHES = 0
+
+
+def _read_launches():
+    return {name: mod.LAUNCHES for name, mod in _kernel_modules().items()}
+
+
 # ------------------------------------------------------------------ phase 1
 def phase_card_and_build():
     smi = subprocess.run(
@@ -69,11 +110,12 @@ def phase_card_and_build():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
     names = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    for name in names:
-        build.build(name)         # raises on a failed build
+    with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
+        list(pool.map(build.build, names))         # raises on a failure
     emit({"phase": "build", "card": card, "kernels": names,
           "build_s": {n: round(build.BUILD_SECONDS.get(n, 0.0), 3)
                       for n in names},
@@ -242,20 +284,128 @@ def phase_small_slice(dev):
     torch.cuda.synchronize()
 
 
+def _randn(shape, seed, dev, dtype):
+    import numpy as np
+    import torch
+    x = np.random.default_rng(seed).standard_normal(shape)
+    return torch.from_numpy(x.astype(np.float32)).to(dev, dtype)
+
+
+def _route_logits(T, E, seed, dev):
+    """Random logits with every third token's experts tied in pairs."""
+    import numpy as np
+    import torch
+    x = np.random.default_rng(seed).standard_normal((T, E)) \
+        .astype(np.float32)
+    x[::3] = np.repeat(x[::3, :(E + 1) // 2], 2, axis=1)[:, :E]
+    return torch.from_numpy(x).to(dev)
+
+
+def phase_model_kernels_vs_plain(dev):
+    """decode_attention and moe_route against their plain versions at the
+    serving main path's shapes (OLMoE: B 4, K 16, G 1, hd 128, S 1,064;
+    the router at T 4 (decode) and 1,024 (prefill), E 64, k 8)."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ref as DR
+    from repro_torch.kernels.moe_route import kernel as RK
+    from repro_torch.kernels.moe_route import ref as RR
+    B, S, K, G, hd = 4, 1064, 16, 1, 128
+    for dtype, tol in (("float32", 2e-5), ("bfloat16", 3e-2)):
+        dt = getattr(torch, dtype)
+        q = _randn((B, K, G, hd), 1, dev, dt)
+        k = _randn((B, S, K, hd), 2, dev, dt)
+        v = _randn((B, S, K, hd), 3, dev, dt)
+        for pos, window in ((0, 0), (511, 0), (1024, 0), (1054, 0),
+                            (1063, 0), (1054, 256), (100, 256)):
+            got = DK.decode_attention_cuda(q, k, v, pos, window)
+            want = DR.decode_attention_ref(q, k, v, pos, window)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                     atol=tol))
+            emit({"phase": "kernel_vs_plain", "kernel": "decode_attention",
+                  "case": f"{dtype}_pos{pos}_win{window}",
+                  "shape": [B, S, K, G, hd], "max_abs_err": err,
+                  "tolerance": tol, "ok": ok})
+            if not ok:
+                fail(f"decode_attention differs from its plain version: "
+                     f"{dtype} pos {pos} window {window}, max err {err}")
+    for T in (4, 1024):
+        for renorm in (False, True):
+            logits = _route_logits(T, 64, T, dev)
+            w, idx = RK.route_cuda(logits, 8, renorm)
+            w0, idx0 = RR.route_ref(logits, 8, renorm)
+            torch.cuda.synchronize()
+            same_idx = bool(torch.equal(idx, idx0))
+            err = float((w - w0).abs().max())
+            ok = same_idx and bool(torch.allclose(w, w0, rtol=1e-5,
+                                                  atol=1e-6))
+            emit({"phase": "kernel_vs_plain", "kernel": "moe_route",
+                  "case": f"T{T}_E64_k8_renorm{int(renorm)}_ties",
+                  "indices_equal": same_idx, "max_abs_err": err,
+                  "tolerance": {"rtol": 1e-5, "atol": 1e-6}, "ok": ok})
+            if not ok:
+                fail(f"moe_route differs from its plain version: T {T} "
+                     f"renormalize {renorm}, indices equal {same_idx}, "
+                     f"max err {err}")
+
+
+def phase_reduced_server(dev):
+    """The reduced OLMoE server (float32) on the card against the same
+    run on the CPU: the same tokens; the last logits within 1e-4 (the
+    same float32 formulas, summed in another order on each device)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import init_params
+    cfg = get_config(SERVE_ARCH).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def to(tree, d):
+        if isinstance(tree, dict):
+            return {k: to(v, d) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, d) for v in tree]
+        return tree.to(d)
+    shape = dict(requests=3, prompt_len=8, max_new=4, slots=2)
+    _reset_launches()
+    gpu = serve(SERVE_ARCH, cfg=cfg, params=to(params, dev), device=dev,
+                **shape)
+    launches = _read_launches()
+    cpu = serve(SERVE_ARCH, cfg=cfg, params=params, device="cpu", **shape)
+    same = [r.out for r in gpu.requests] == [r.out for r in cpu.requests]
+    lg, lc = gpu.server.last_logits.cpu(), cpu.server.last_logits
+    err = float((lg - lc).abs().max())
+    close = bool(torch.allclose(lg, lc, rtol=1e-4, atol=1e-4))
+    want = {"decode_attention": cfg.num_layers * gpu.decode_steps,
+            "moe_route": cfg.num_layers * (gpu.prefills
+                                           + gpu.decode_steps)}
+    counted = all(launches[n] == c for n, c in want.items())
+    emit({"phase": "reduced_server_gpu_vs_cpu", "arch": cfg.name,
+          "reduced": True, **shape, "tokens_equal": bool(same),
+          "tokens": [r.out for r in gpu.requests],
+          "logits_max_abs_err": err, "tolerance": 1e-4,
+          "launches": launches, "expected_launches": want})
+    if not (same and close and counted):
+        fail(f"reduced server on the card differs from the CPU run: tokens "
+             f"equal {same}, logits err {err}, launches {launches} "
+             f"(expected {want})")
+
+
 # ------------------------------------------------------------------ phase 3
 def phase_main_path(dev):
     import numpy as np
     import torch
-    from repro_torch.kernels.market_clear import kernel as K
     from repro_torch.sim.simulator import FLEET_10K, FleetScenarioConfig, \
         run_fleet_scenario
     cfg = FleetScenarioConfig(**FLEET_10K)
-    K.LAUNCHES = 0
+    _reset_launches()
     t0 = time.perf_counter()
     res = run_fleet_scenario(cfg, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"market_clear": K.LAUNCHES}
+    launches = _read_launches()
     est = res.engine_state
     waves, resorts = int(est["waves"]), int(est["resorts"])
     perf = res.perf
@@ -291,19 +441,105 @@ def phase_main_path(dev):
 
 
 # ------------------------------------------------------------------ phase 4
-def _time_ms(fn, reps):
+def phase_serve(dev):
+    """The serving main path at full width, with every launch count set
+    to 0 just before and read just after."""
     import torch
-    for _ in range(3):
-        fn()
+    from repro_torch.launch.serve import serve
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches()
+    t0 = time.perf_counter()
+    rep = serve(SERVE_ARCH, full=True, device=dev, **SERVE_FULL)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    cfg = rep.cfg
+    n_layers = cfg.num_layers
+    want = {"decode_attention": n_layers * rep.decode_steps,
+            "moe_route": n_layers * (rep.prefills + rep.decode_steps)}
+    finite = bool(torch.isfinite(rep.server.last_logits).all())
+    lengths = [len(r.out) for r in rep.requests]
+    in_vocab = all(0 <= t < cfg.vocab_size for r in rep.requests
+                   for t in r.out)
+    emit({"phase": "serve_main_path", "arch": cfg.name, "full": True,
+          "param_dtype": cfg.param_dtype, **SERVE_FULL,
+          "max_len": rep.server.max_len, "served": rep.served,
+          "tokens_per_request": lengths, "prefills": rep.prefills,
+          "decode_steps": rep.decode_steps, "launches": launches,
+          "expected_launches": want, "logits_finite": finite,
+          "tokens_in_vocab": in_vocab, **rep.metrics(),
+          "ttft_ms_all": sorted(float(t * 1e3)
+                                for t in rep.ttft_s.values()),
+          "tick_ms": [float(t * 1e3) for t in rep.tick_s],
+          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+          "wall_with_init_s": wall})
+    if rep.served != SERVE_FULL["requests"] or \
+            any(n != SERVE_FULL["max_new"] for n in lengths) or not in_vocab:
+        fail(f"serving main path finished {rep.served} requests with "
+             f"{lengths} tokens (in vocab: {in_vocab})")
+    if not finite:
+        fail("serving main path produced non-finite logits")
+    for name, count in want.items():
+        if count <= 0 or launches[name] != count:
+            fail(f"{name} launched {launches[name]} times on the serving "
+                 f"main path; expected {count}")
+    return rep, launches
+
+
+# ------------------------------------------------------------------ phase 5
+def _time_ms(fn, reps):
+    """CUDA-event time per call of ``fn(i)`` over ``reps`` calls, after
+    a warm-up; ``i`` lets a caller rotate its inputs."""
+    import torch
+    for i in range(3):
+        fn(i)
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    for _ in range(reps):
-        fn()
+    for i in range(reps):
+        fn(i)
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def _graph_ms(fn, reps):
+    """Device time per call of ``fn(i)``: ``reps`` calls captured in one
+    CUDA graph and replayed, so the host's enqueue time (which exceeds a
+    small kernel's run time on this path) is not in the timed span."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):        # warm-up off the default stream
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(3):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (3 * reps)
+
+
+def _timings(kernel, plain, library, reps, plain_reps):
+    """Device times (CUDA graph) and eager times (host enqueue
+    included) of a kernel, its plain version and a library call."""
+    return {"ms": _graph_ms(kernel, reps),
+            "plain_ms": _graph_ms(plain, plain_reps),
+            "library_ms": _graph_ms(library, reps),
+            "ms_eager": _time_ms(kernel, reps),
+            "plain_ms_eager": _time_ms(plain, plain_reps),
+            "library_ms_eager": _time_ms(library, reps)}
 
 
 def _clear_bound(aggs, n_leaves, k, strides):
@@ -331,7 +567,7 @@ def _clear_bound(aggs, n_leaves, k, strides):
                                  else "operations"), nbytes, ops
 
 
-def phase_kernels_line(res, launches):
+def _market_clear_entry(res, launches):
     import torch
     from repro_torch.kernels.market_clear import kernel as K
     from repro_torch.kernels.market_clear import ref as R
@@ -358,8 +594,8 @@ def phase_kernels_line(res, launches):
         fail("market_clear differs from its plain version on the main "
              "path's final book")
     err = float((plain[0] - got[0]).abs().max())
-    ms = _time_ms(lambda: K.clear_cuda(*aggs, *args), 200)
-    plain_ms = _time_ms(lambda: R.clear_sorted_from_aggs(aggs, *args, k),
+    ms = _time_ms(lambda i: K.clear_cuda(*aggs, *args), 200)
+    plain_ms = _time_ms(lambda i: R.clear_sorted_from_aggs(aggs, *args, k),
                         20)
     bound_ms, bound_by, nbytes, ops = _clear_bound(aggs, tree.n_leaves, k,
                                                    tree.strides)
@@ -372,7 +608,127 @@ def phase_kernels_line(res, launches):
             "shapes": {"n_seg": int(n_seg), "k": k,
                        "n_leaves": tree.n_leaves},
             "bytes": nbytes, "operations": ops}
-    emit({"kernels": [kern]})
+    return kern
+
+
+def _bound(nbytes, ops, ops_per_s):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def _decode_attention_entry(rep, launches):
+    """At the serving main path's last decode step: the 16 layers'
+    full-width caches (bfloat16, B 4, S 1,064, K 16, hd 128) at the last
+    decode position, one layer per call in turn, so every call finds its
+    17 MB of keys and values outside the 50 MB L2 as the model's layer
+    loop does."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ref as DR
+    blk = rep.server.cache["blocks"][0]
+    ck, cv = blk["k"], blk["v"]                 # (L, B, S, K, hd)
+    n_layers, B, S, K, hd = ck.shape
+    G = rep.cfg.num_heads // K
+    pos = SERVE_FULL["prompt_len"] + SERVE_FULL["max_new"] - 2
+    q = _randn((B, K, G, hd), 7, ck.device, ck.dtype)
+    got = DK.decode_attention_cuda(q, ck[0], cv[0], pos)
+    want = DR.decode_attention_ref(q, ck[0], cv[0], pos)
+
+    def sdpa(i):
+        kk = ck[i % n_layers][:, :pos + 1].transpose(1, 2)
+        vv = cv[i % n_layers][:, :pos + 1].transpose(1, 2)
+        return F.scaled_dot_product_attention(
+            q.reshape(B, K * G, 1, hd), kk, vv, enable_gqa=True)
+    lib = sdpa(0).reshape(B, K, G, hd)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), rtol=3e-2, atol=3e-2):
+        fail(f"decode_attention differs from its plain version on the "
+             f"serving main path's cache: max err {err}")
+    times = _timings(
+        lambda i: DK.decode_attention_cuda(q, ck[i % n_layers],
+                                           cv[i % n_layers], pos),
+        lambda i: DR.decode_attention_ref(q, ck[i % n_layers],
+                                          cv[i % n_layers], pos),
+        sdpa, 160, 32)
+    esize = ck.element_size()
+
+    def nbytes(n):      # q and out once, the keys and values of n positions
+        return esize * (2 * B * K * G * hd + 2 * B * n * K * hd)
+    n = pos + 1
+    ops = 4 * B * K * G * n * hd                 # q.k and p.v, 2 flops each
+    rate = BF16_OPS_PER_S if ck.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    bound_ms, bound_by = _bound(nbytes(n), ops, rate)
+    full_ms, _ = _bound(nbytes(S), 4 * B * K * G * S * hd, rate)
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:78",
+            "launches": launches["decode_attention"], "max_abs_err": err,
+            **times, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library": "F.scaled_dot_product_attention(enable_gqa=True)",
+            "library_max_abs_err": float((lib.float() - got.float())
+                                         .abs().max()),
+            "shapes": {"B": B, "S": S, "K": K, "G": G, "hd": hd,
+                       "pos": pos, "dtype": str(ck.dtype)},
+            "bytes": nbytes(n), "operations": ops,
+            "bound_ms_full_S": full_ms}
+
+
+def _route_numbers(T, E, k, renorm, dev):
+    import torch
+    from repro_torch.kernels.moe_route import kernel as RK
+    from repro_torch.kernels.moe_route import ref as RR
+    logits = _randn((T, E), 11 + T, dev, torch.float32)
+    w, idx = RK.route_cuda(logits, k, renorm)
+    w0, idx0 = RR.route_ref(logits, k, renorm)
+    torch.cuda.synchronize()
+    if not torch.equal(idx, idx0):
+        fail(f"moe_route indices differ from the plain version at T {T}")
+    reps = 500 if T < 64 else 200
+    nbytes = 4 * T * E + 8 * T * k       # logits in, weights + ids out
+    ops = 5 * T * E + 2 * k * T * E      # softmax, then k max-and-mask
+    bound_ms, bound_by = _bound(nbytes, ops, FP32_OPS_PER_S)
+    times = _timings(
+        lambda i: RK.route_cuda(logits, k, renorm),
+        lambda i: RR.route_ref(logits, k, renorm),
+        lambda i: torch.topk(torch.softmax(logits, dim=-1), k), reps, 50)
+    return {"max_abs_err": float((w - w0).abs().max()), **times,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "operations": ops, "T": T}
+
+
+def _moe_route_entry(rep, launches, dev):
+    """At the serving main path's shapes: a decode step's 4 tokens (most
+    of the launches) and, beside it, a prefill's 1,024."""
+    cfg = rep.cfg
+    E, k, renorm = cfg.num_experts, cfg.num_experts_per_tok, \
+        cfg.moe_renormalize
+    dec = _route_numbers(SERVE_FULL["slots"], E, k, renorm, dev)
+    pre = _route_numbers(SERVE_FULL["prompt_len"], E, k, renorm, dev)
+    return {"name": "moe_route", "route": "cuda",
+            "source": "src/repro_torch/csrc/moe_route.cu",
+            "replaces": "src/repro/kernels/moe_route/kernel.py:59",
+            "launches": launches["moe_route"],
+            "max_abs_err": max(dec["max_abs_err"], pre["max_abs_err"]),
+            **{key: dec[key] for key in (
+                "ms", "plain_ms", "library_ms", "ms_eager", "plain_ms_eager",
+                "library_ms_eager", "bound_ms", "bound_by")},
+            "library": "torch.topk(torch.softmax(logits, -1), k)",
+            "shapes": {"T": dec["T"], "E": E, "k": k,
+                       "renormalize": renorm, "dtype": "torch.float32"},
+            "bytes": dec["bytes"], "operations": dec["operations"],
+            "prefill": pre}
+
+
+def phase_kernels_line(fleet_res, fleet_launches, serve_rep, serve_launches,
+                       dev):
+    emit({"kernels": [
+        _market_clear_entry(fleet_res, fleet_launches),
+        _decode_attention_entry(serve_rep, serve_launches),
+        _moe_route_entry(serve_rep, serve_launches, dev)]})
 
 
 def main() -> None:
@@ -389,12 +745,18 @@ def main() -> None:
     sys.path.insert(0, str(HERE / "src"))
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     card = phase_card_and_build()
     phase_kernel_vs_plain(dev)
+    phase_model_kernels_vs_plain(dev)
     phase_small_slice(dev)
-    res, launches = phase_main_path(dev)
-    phase_kernels_line(res, launches)
+    phase_reduced_server(dev)
+    fleet_res, fleet_launches = phase_main_path(dev)
+    serve_rep, serve_launches = phase_serve(dev)
+    phase_kernels_line(fleet_res, fleet_launches, serve_rep, serve_launches,
+                       dev)
     emit({"phase": "done", "card": card,
           "total_s": round(time.perf_counter() - t0, 3)})
     OUT.mkdir(exist_ok=True)

@@ -126,10 +126,20 @@ def trace_epochs(dev):
         epoch_s = _drive(fcfg, runner, params)
     first, last = PROFILED_EPOCHS[0], PROFILED_EPOCHS[-1]
     wall_ms = sum(epoch_s[first:last + 1]) * 1e3
-    waves = started[last + 1] - started[first]
+    out = {"profiled_epochs": list(PROFILED_EPOCHS), "wall_ms": wall_ms,
+           "waves": started[last + 1] - started[first]}
+    out.update(summarize(traced["events"], wall_ms, ("clear_kernel",)))
+    return out
+
+
+def summarize(events, wall_ms, kernel_tags):
+    """Device busy time and share, kernel launches, device-to-host
+    reads, the launches of the kernels whose names hold each of
+    ``kernel_tags``, and the top operations by device and by host time,
+    from a profiler's ``key_averages()``."""
     dev_rows, host_rows = [], []
     launches = reads = 0
-    for e in traced["events"]:
+    for e in events:
         dus = _event_device_us(e)
         # each ProfilerStep also lands on the device track as an
         # annotation spanning the whole step: it is not device work
@@ -147,12 +157,11 @@ def trace_epochs(dev):
     dev_rows.sort(reverse=True)
     host_rows.sort(reverse=True)
     return {
-        "profiled_epochs": list(PROFILED_EPOCHS), "wall_ms": wall_ms,
-        "waves": waves, "device_busy_ms": busy_ms,
+        "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms if wall_ms else None,
         "kernel_launches": launches, "host_reads": reads,
-        "clear_kernel_launches": sum(r[2] for r in dev_rows
-                                     if "clear_kernel" in r[1]),
+        **{f"{tag}_launches": sum(r[2] for r in dev_rows if tag in r[1])
+           for tag in kernel_tags},
         "top_device": [{"name": k[:90], "ms": us / 1e3, "count": c}
                        for us, k, c in dev_rows[:10]],
         "top_host_self": [{"name": k[:90], "ms": us / 1e3, "count": c}

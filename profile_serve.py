@@ -1,0 +1,96 @@
+#!/usr/bin/env python3
+"""Where the OLMoE serving main path's time goes on the card.
+
+Run from the repository root on a machine with a CUDA card and nvcc:
+
+    python3 profile_serve.py
+
+Serves ``chip_smoke.py``'s serving main path once (``olmoe-1b-7b`` at
+full width, bfloat16, 8 requests of 1,024-token prompts, 32 new tokens,
+4 slots) to warm up, then, on the same server:
+
+1. ``torch.profiler`` over one prefill (``Server._fill_slot``);
+2. ``torch.profiler`` over 5 decode ticks with all 4 slots busy;
+
+and reports for each the wall time, the device's busy share, the kernel
+launches (and those of the two model kernels), and the top operations
+by device and by host time.  Prints one JSON line per result and writes
+them to ``chiprun_out/profile_serve.jsonl``.  Needs CUDA; it never runs
+on the CPU.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+from chip_smoke import SERVE_ARCH, SERVE_FULL
+from profile_epoch import summarize
+
+HERE = pathlib.Path(__file__).resolve().parent
+DECODE_TICKS = 5
+TAGS = ("decode_kernel", "route_kernel")
+
+
+def _profiled(fn, dev):
+    """Run ``fn`` once under torch.profiler; wall ms and the summary."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return {"wall_ms": wall_ms, **summarize(prof.key_averages(), wall_ms,
+                                            TAGS)}
+
+
+def main() -> None:
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serve needs a CUDA device")
+    sys.path.insert(0, str(HERE / "src"))
+    from repro_torch.launch.serve import serve
+    from repro_torch.serve.server import Request
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    dev = torch.device("cuda", 0)
+    rep = serve(SERVE_ARCH, full=True, device=dev, **SERVE_FULL)
+    srv = rep.server
+    rng = np.random.default_rng(1)
+    reqs = [Request(rid=100 + i, max_new=SERVE_FULL["max_new"],
+                    prompt=rng.integers(0, rep.cfg.vocab_size,
+                                        SERVE_FULL["prompt_len"])
+                    .astype(np.int32)) for i in range(srv.B)]
+    out = [{"card": card, "warm_up": rep.metrics()}]
+    out.append({"prefill": _profiled(lambda: srv._fill_slot(0, reqs[0]),
+                                     dev)})
+    for i in range(1, srv.B):
+        srv._fill_slot(i, reqs[i])
+    srv.step()                                  # all slots busy, warm
+
+    def ticks():
+        for _ in range(DECODE_TICKS):
+            srv.step()
+    res = _profiled(ticks, dev)
+    res["ticks"] = DECODE_TICKS
+    res["ms_per_tick"] = res["wall_ms"] / DECODE_TICKS
+    res["launches_per_tick"] = res["kernel_launches"] / DECODE_TICKS
+    out.append({"decode": res})
+    lines = [json.dumps(o) for o in out]
+    for line in lines:
+        print(line, flush=True)
+    dest = HERE / "chiprun_out"
+    dest.mkdir(exist_ok=True)
+    (dest / "profile_serve.jsonl").write_text("\n".join(lines) + "\n")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,128 @@
+"""Architecture configuration, a trimmed copy of ``repro.configs.base``.
+
+It keeps the fields and methods that the serving path of the port's
+architectures reads (``layer_plan``, ``plan_blocks``, ``reduced``), with
+the reference's defaults, so that a config built here and one built
+there describe the same model.  Shape tables, parameter counts and the
+SSM, encoder and sharding fields wait for the slices that use them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Dict, List, Tuple
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    kind: str            # "attn" | "ssm"
+    moe: bool            # MoE MLP instead of dense MLP
+    window: int          # sliding-window size; 0 = full attention
+    cross_attn: bool = False
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str
+    source: str = ""
+
+    num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    mlp_type: str = "swiglu"
+    tie_embeddings: bool = True
+
+    qk_norm: bool = False
+    use_rope: bool = True
+    rope_theta: float = 10_000.0
+    sliding_window: int = 0
+    local_global_period: int = 0
+    attn_layer_period: int = 0
+    attn_layer_offset: int = 0
+
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_d_ff: int = 0
+    moe_layer_period: int = 1
+    first_dense_layers: int = 0
+    moe_renormalize: bool = True
+
+    param_dtype: str = "bfloat16"
+    attn_softmax_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.num_heads and not self.head_dim:
+            object.__setattr__(self, "head_dim",
+                               self.d_model // self.num_heads)
+
+    def layer_plan(self) -> List[LayerSpec]:
+        plan: List[LayerSpec] = []
+        for i in range(self.num_layers):
+            if self.num_heads == 0:
+                kind = "ssm"
+            elif self.attn_layer_period:
+                kind = ("attn" if i % self.attn_layer_period
+                        == self.attn_layer_offset else "ssm")
+            else:
+                kind = "attn"
+            moe = (self.num_experts > 0
+                   and i >= self.first_dense_layers
+                   and (i - self.first_dense_layers)
+                   % self.moe_layer_period == 0)
+            window = 0
+            if self.sliding_window:
+                if self.local_global_period:
+                    is_global = (i % self.local_global_period
+                                 == self.local_global_period - 1)
+                    window = 0 if is_global else self.sliding_window
+                else:
+                    window = self.sliding_window
+            plan.append(LayerSpec(kind=kind, moe=moe, window=window))
+        return plan
+
+    def plan_blocks(self) -> Tuple[int, int, int, int]:
+        """(head, period, n_super, tail): ``head`` leading layers, then
+        ``n_super`` repetitions of a ``period``-layer superblock (stacked
+        params), then ``tail`` partial-period layers."""
+        plan = self.layer_plan()
+        head = self.first_dense_layers if self.num_experts > 0 else 0
+        rest = plan[head:]
+        p = len(rest) if rest else 1
+        for cand in range(1, len(rest) + 1):
+            if all(rest[i] == rest[i % cand] for i in range(len(rest))):
+                p = cand
+                break
+        n_super = len(rest) // p if p else 0
+        tail = len(rest) - n_super * p
+        return head, p, n_super, tail
+
+    def reduced(self, **overrides) -> "ArchConfig":
+        """A test-sized config of the same family: the reference's
+        ``reduced()`` values for the fields kept here."""
+        small: Dict[str, Any] = dict(
+            num_layers=min(self.num_layers, 4) or self.num_layers,
+            d_model=64,
+            num_heads=4 if self.num_heads else 0,
+            num_kv_heads=min(self.num_kv_heads, 2) if self.num_kv_heads
+            else 0,
+            head_dim=16 if self.num_heads else 0,
+            d_ff=128 if self.d_ff else 0,
+            vocab_size=256,
+            num_experts=min(self.num_experts, 8) if self.num_experts else 0,
+            num_experts_per_tok=min(self.num_experts_per_tok, 2),
+            moe_d_ff=64 if self.num_experts else 0,
+            sliding_window=16 if self.sliding_window else 0,
+            param_dtype="float32",
+        )
+        if self.attn_layer_period:
+            small["attn_layer_period"] = 4
+            small["attn_layer_offset"] = 1
+        if self.local_global_period:
+            small["local_global_period"] = 2
+        small.update(overrides)
+        return dataclasses.replace(self, **small)

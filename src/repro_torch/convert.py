@@ -36,3 +36,22 @@ def to_numpy(obj):
     if isinstance(obj, (list, tuple)):
         return tuple(to_numpy(v) for v in obj)
     return obj.detach().cpu().numpy()
+
+
+def model_params_from_jax(params_np, device: DeviceLike = None):
+    """The reference's ``models.model.init_params`` tree, given as numpy
+    (``np.asarray`` of each leaf), as the port's parameter tree on
+    ``device``: the same head/blocks/tail layout and dtypes.  bfloat16
+    leaves come from numpy as ``ml_dtypes.bfloat16``, which torch does not
+    read; they go through float32 (exact for bfloat16) and back."""
+    dev = resolve_device(device)
+    if isinstance(params_np, dict):
+        return {k: model_params_from_jax(v, dev) for k, v in params_np.items()}
+    if isinstance(params_np, (list, tuple)):
+        return type(params_np)(model_params_from_jax(v, dev)
+                               for v in params_np)
+    arr = np.asarray(params_np)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=dev, dtype=torch.bfloat16)
+    return to_torch(arr, dev)

@@ -1,0 +1,99 @@
+"""ctypes wrapper of the CUDA flash-decode kernel
+(``csrc/decode_attention.cu``), the Hopper replacement of the Pallas
+``repro.kernels.decode_attention.kernel.decode_attention_pallas``.
+
+``decode_attention_cuda`` checks device, dtype, shape and contiguity,
+turns ``pos`` and the window into the range of valid cache positions,
+allocates the output with ``torch.empty``, launches on the current
+stream without synchronising, raises if the launch was refused, and
+counts the launch in ``LAUNCHES``.  It never falls back to the plain
+version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build
+
+NAME = "decode_attention"
+LAUNCHES = 0          # launches of the kernel (plain int, reset by callers)
+HDMAX = 256           # csrc/decode_attention.cu HDMAX
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load(NAME)
+    fn = lib.decode_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.decode_attention_hdmax.argtypes = []
+        lib.decode_attention_hdmax.restype = ctypes.c_int
+        if lib.decode_attention_hdmax() != HDMAX:
+            raise RuntimeError("decode_attention.cu HDMAX differs from "
+                               "kernel.py")
+    return lib
+
+
+def valid_range(S: int, pos: int, window: int):
+    """``(lo, hi, uniform)``: the cache positions the mask keeps are
+    ``lo..hi``; with none kept, the reference's softmax is uniform over
+    all S positions, which the kernel gives with every score 0."""
+    hi = min(pos, S - 1)
+    lo = max(0, pos - window + 1) if window else 0
+    if lo > hi:
+        return 0, S - 1, True
+    return lo, hi, False
+
+
+def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, pos: int,
+                          window: int = 0) -> torch.Tensor:
+    """One launch: q (B, K, G, hd), k/v (B, S, K, hd) on CUDA, all
+    float32 or all bfloat16 -> (B, K, G, hd) in q's dtype."""
+    global LAUNCHES
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"decode_attention_cuda needs CUDA tensors, got "
+                         f"{dev}")
+    for name, x in (("k", k), ("v", v)):
+        if x.device != dev:
+            raise ValueError(f"{name} on {x.device}, q on {dev}")
+        if x.dtype != q.dtype:
+            raise TypeError(f"{name} has dtype {x.dtype}, q {q.dtype}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"dtype {q.dtype}: the kernel takes float32 or "
+                        "bfloat16")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}: expected (B, K, G, hd) and "
+                         "two (B, S, K, hd)")
+    B, K, G, hd = q.shape
+    S = k.shape[1]
+    if (k.shape[0], k.shape[2], k.shape[3]) != (B, K, hd):
+        raise ValueError(f"k {tuple(k.shape)} does not fit q "
+                         f"{tuple(q.shape)}")
+    if not 1 <= hd <= HDMAX:
+        raise ValueError(f"head dim {hd} outside [1, {HDMAX}]")
+    if S < 1:
+        raise ValueError("empty cache")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    lo, hi, uniform = valid_range(S, int(pos), int(window))
+    out = torch.empty_like(q)
+    lib = _lib()
+    err = lib.decode_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _DTYPES[q.dtype], B, S, K, G, hd, lo, hi, int(uniform),
+        float(np.float32(hd ** -0.5)),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES += 1
+    return out

@@ -1,0 +1,175 @@
+"""Layer library of the port, twin of ``repro.models.layers`` for the
+layers the serving path of ``olmoe-1b-7b`` runs.
+
+Functions keep the reference's names, arguments and layouts.  Two of
+them reach the port's kernels: ``attention_decode`` calls
+``kernels.decode_attention.ops.decode_attention`` for its attention core
+and ``_router_topk`` calls ``kernels.moe_route.ops.route`` (the CUDA
+kernels on CUDA tensors, their plain versions on CPU tensors).  Prefill
+attention and the projections stay plain PyTorch, as the reference left
+them to XLA.
+
+JAX promotes mixed float types at a product (``bf16 @ f32`` is an f32
+product); PyTorch raises instead, so the casts JAX applies silently are
+written out here (the router's logits, ``moe_dense``'s combine weights,
+``rms_norm``'s f32 compute).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.moe_route import ops as route_ops
+
+NEG_INF = -2.0 ** 30  # large-negative for masking (safe in bf16)
+
+
+# --------------------------------------------------------------------------
+# Basic ops
+# --------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.float())).to(dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding. x: (..., S, n_heads, head_dim); positions:
+    (..., S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = positions[..., None].float() * freqs            # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]                     # (..., S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention
+# --------------------------------------------------------------------------
+def _attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
+               prefix_len: int, causal: bool) -> torch.Tensor:
+    """Boolean (..., Sq, Sk) mask. True = attend."""
+    qp = q_pos[..., :, None]
+    kp = k_pos[..., None, :]
+    if causal:
+        m = kp <= qp
+        if window:
+            m &= kp > qp - window
+        if prefix_len:
+            m |= (qp < prefix_len) & (kp < prefix_len)
+    else:
+        m = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                       dtype=torch.bool, device=qp.device)
+    return m
+
+
+def attention(p: Dict[str, torch.Tensor], cfg: ArchConfig, x: torch.Tensor,
+              positions: torch.Tensor, *, window: int = 0,
+              prefix_len: int = 0, causal: bool = True,
+              return_kv: bool = False):
+    """Full-sequence self-attention (prefill).  x: (B, S, D)."""
+    B, S, D = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = H // K
+    q = (x @ p["wq"]).reshape(B, S, K, G, hd)
+    k = (x @ p["wk"]).reshape(B, S, K, hd)
+    v = (x @ p["wv"]).reshape(B, S, K, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    if cfg.use_rope:
+        q = rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta) \
+            .reshape(B, S, K, G, hd)
+        k = rope(k, positions, cfg.rope_theta)
+    scale = hd ** -0.5
+    sm_dt = getattr(torch, cfg.attn_softmax_dtype)
+    scores = torch.einsum("bskgh,btkh->bkgst", q, k) * scale
+    mask = _attn_mask(positions, positions, window, prefix_len, causal)
+    scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
+    probs = torch.softmax(scores.to(sm_dt), dim=-1).to(x.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v).reshape(B, S, H * hd)
+    out = out @ p["wo"]
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def attention_decode(p: Dict[str, torch.Tensor], cfg: ArchConfig,
+                     x: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, pos: int, *, window: int = 0):
+    """Single-token self-attention decode.  x: (B, 1, D); cache:
+    (B, Smax, K, hd); pos: host int, the index where the new token's K/V
+    is written.  The cache is updated IN PLACE (the reference returns an
+    updated copy); the same tensors are returned.  The attention core is
+    the decode kernel, whose contract (``decode_attention_ref``) keeps the
+    probabilities in float32 up to the value product; the reference's
+    inline version casts them to x's dtype first, which agrees to
+    rounding in float32 and within the kernel tolerance in bfloat16.
+    Returns (out, cache_k, cache_v)."""
+    B, _, D = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = H // K
+    q = (x @ p["wq"]).reshape(B, 1, K, G, hd)
+    k = (x @ p["wk"]).reshape(B, 1, K, hd)
+    v = (x @ p["wv"]).reshape(B, 1, K, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    if cfg.use_rope:
+        posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+        q = rope(q.reshape(B, 1, H, hd), posb, cfg.rope_theta) \
+            .reshape(B, 1, K, G, hd)
+        k = rope(k, posb, cfg.rope_theta)
+    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+    out = decode_ops.decode_attention(q.reshape(B, K, G, hd), cache_k,
+                                      cache_v, pos, window)
+    return out.reshape(B, 1, H * hd) @ p["wo"], cache_k, cache_v
+
+
+# --------------------------------------------------------------------------
+# Mixture-of-Experts
+# --------------------------------------------------------------------------
+def _router_topk(logits: torch.Tensor, k: int, renormalize: bool):
+    """logits (T, E) -> (weights (T, k) float32, indices (T, k) int32),
+    through the router kernel."""
+    return route_ops.route(logits, k, renormalize)
+
+
+def _experts(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(T, D) times every expert's (E, D, F) -> (E, T, F): one batched
+    product, with no copy of the expert weights."""
+    return torch.matmul(x.unsqueeze(0), w)
+
+
+def moe_dense(p: Dict[str, torch.Tensor], cfg: ArchConfig,
+              x: torch.Tensor) -> torch.Tensor:
+    """Reference MoE: computes EVERY expert for every token, then keeps
+    the top k by their router weights (what the reference's server
+    runs)."""
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    xf = x.reshape(B * S, D)
+    router = p["router"]
+    logits = xf.to(router.dtype) @ router        # JAX: bf16 @ f32 -> f32
+    w, idx = _router_topk(logits, k, cfg.moe_renormalize)
+    dense_w = torch.zeros((B * S, E), dtype=torch.float32, device=x.device)
+    dense_w.scatter_(1, idx.long(), w)
+    g = _experts(xf, p["wg"])                    # (E, T, F)
+    u = _experts(xf, p["wu"])
+    y = torch.bmm(F.silu(g) * u, p["wd"])        # (E, T, D)
+    out = torch.einsum("te,etd->td", dense_w.to(x.dtype), y)
+    return out.reshape(B, S, D)

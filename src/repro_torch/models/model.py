@@ -1,0 +1,259 @@
+"""Model assembly of the port, twin of ``repro.models.model`` for the
+serving path: parameter init, the unrolled forward, prefill, one decode
+step, and the cache layout.
+
+Parameters are plain dicts of tensors in the reference's layout::
+
+    params = {
+      "embed": (V, D), ["lm_head": (D, V)], "final_norm": (D,),
+      "head":   [per-layer dicts]            # leading irregular layers
+      "blocks": [j in 0..period) dicts of tensors stacked on a leading
+                 n_super axis]
+      "tail":   [per-layer dicts]            # partial trailing period
+    }
+
+so ``convert.model_params_from_jax`` carries the reference's
+``init_params`` tree across unchanged.  KV caches use the same
+head/blocks/tail layout.  The layers run unrolled (the reference's
+``scan_layers=False``); decode updates the cache in place.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import layers as L
+
+Params = Dict[str, Any]
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def _stack(trees: List[Dict[str, Any]]) -> Dict[str, Any]:
+    return {k: (_stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
+                else torch.stack([t[k] for t in trees]))
+            for k in trees[0]}
+
+
+def _slice(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
+    return {k: (_slice(v, i) if isinstance(v, dict) else v[i])
+            for k, v in tree.items()}
+
+
+# --------------------------------------------------------------------------
+# Parameter init (the reference's shapes, scales and dtypes)
+# --------------------------------------------------------------------------
+class _Init:
+    def __init__(self, gen: torch.Generator, device: torch.device):
+        self.gen = gen
+        self.device = device
+
+    def norm(self, d):
+        return torch.zeros((d,), dtype=torch.float32, device=self.device)
+
+    def dense(self, shape, dtype, scale=None):
+        fan_in = shape[-2] if len(shape) >= 2 else shape[0]
+        scale = scale if scale is not None else fan_in ** -0.5
+        x = torch.randn(shape, generator=self.gen, dtype=torch.float32,
+                        device=self.gen.device)
+        return (x * scale).to(device=self.device, dtype=dtype)
+
+
+def _attn_params(cfg: ArchConfig, ini: _Init, dt):
+    D, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {
+        "wq": ini.dense((D, H * hd), dt),
+        "wk": ini.dense((D, K * hd), dt),
+        "wv": ini.dense((D, K * hd), dt),
+        "wo": ini.dense((H * hd, D), dt,
+                        scale=(H * hd) ** -0.5 / (2 * cfg.num_layers) ** 0.5),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = ini.norm(hd)
+        p["k_norm"] = ini.norm(hd)
+    return p
+
+
+def _moe_params(cfg: ArchConfig, ini: _Init, dt):
+    D, E, F = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    return {"router": ini.dense((D, E), torch.float32),
+            "wg": ini.dense((E, D, F), dt),
+            "wu": ini.dense((E, D, F), dt),
+            "wd": ini.dense((E, F, D), dt,
+                            scale=F ** -0.5 / (2 * cfg.num_layers) ** 0.5)}
+
+
+def _layer_params(cfg: ArchConfig, spec: LayerSpec, ini: _Init, dt):
+    if spec.kind != "attn":
+        raise NotImplementedError(
+            f"{cfg.name}: layer kind {spec.kind!r} is not ported yet")
+    if not spec.moe and cfg.d_ff:
+        raise NotImplementedError(f"{cfg.name}: dense MLP is not ported yet")
+    p: Dict[str, Any] = {"ln1": ini.norm(cfg.d_model),
+                         "attn": _attn_params(cfg, ini, dt)}
+    if spec.moe:
+        p["ln2"] = ini.norm(cfg.d_model)
+        p["moe"] = _moe_params(cfg, ini, dt)
+    return p
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator,
+                device: DeviceLike = None) -> Params:
+    """Random parameters with the reference's shapes, scales and dtypes,
+    drawn from ``gen`` (on ``gen``'s device, then moved to ``device``).
+    The numbers differ from the reference's ``jax.random`` draws; tests
+    carry the reference's own parameters across instead."""
+    dev = resolve_device(device)
+    ini = _Init(gen, dev)
+    dt = _dtype(cfg)
+    plan = cfg.layer_plan()
+    head, p, n_super, tail = cfg.plan_blocks()
+    params: Params = {"embed": ini.dense((cfg.vocab_size, cfg.d_model), dt,
+                                         0.02),
+                      "final_norm": ini.norm(cfg.d_model)}
+    per_layer = [_layer_params(cfg, spec, ini, dt) for spec in plan]
+    params["head"] = per_layer[:head]
+    params["blocks"] = [_stack([per_layer[head + s * p + j]
+                                for s in range(n_super)])
+                        for j in range(p)] if n_super else []
+    params["tail"] = per_layer[head + n_super * p:]
+    del per_layer
+    if not cfg.tie_embeddings:
+        params["lm_head"] = ini.dense((cfg.d_model, cfg.vocab_size), dt, 0.02)
+    return params
+
+
+# --------------------------------------------------------------------------
+# One layer, the stack, forward
+# --------------------------------------------------------------------------
+def _apply_layer(p, cfg: ArchConfig, spec: LayerSpec, x, positions, *,
+                 collect: bool = False, max_len: int = 0):
+    """Returns (x, cache_entry|None)."""
+    entry = None
+    h = L.rms_norm(x, p["ln1"])
+    out, (k, v) = L.attention(p["attn"], cfg, h, positions,
+                              window=spec.window, return_kv=True)
+    if collect:
+        pad = max(0, max_len - k.shape[1])
+        entry = {"k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)),
+                 "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))}
+    x = x + out
+    if spec.moe:
+        x = x + L.moe_dense(p["moe"], cfg, L.rms_norm(x, p["ln2"]))
+    return x, entry
+
+
+def _period_specs(cfg: ArchConfig):
+    plan = cfg.layer_plan()
+    head, p, n_super, tail = cfg.plan_blocks()
+    return plan, head, p, n_super, tail
+
+
+def _run_stack(params, cfg, x, positions, *, collect, max_len):
+    """Head + unrolled superblocks + tail.  Returns (x, caches dict with
+    head/blocks/tail lists)."""
+    plan, head, p, n_super, tail = _period_specs(cfg)
+    caches: Dict[str, Any] = {"head": [], "blocks": [], "tail": []}
+
+    def one(lp, spec, xx):
+        return _apply_layer(lp, cfg, spec, xx, positions, collect=collect,
+                            max_len=max_len)
+
+    for i in range(head):
+        x, e = one(params["head"][i], plan[i], x)
+        caches["head"].append(e)
+    collected: List[List[Any]] = [[] for _ in range(p)]
+    for s in range(n_super):
+        for j in range(p):
+            x, e = one(_slice(params["blocks"][j], s), plan[head + s * p + j],
+                       x)
+            collected[j].append(e)
+    if collect and n_super:
+        caches["blocks"] = [_stack(c) for c in collected]
+    for t in range(tail):
+        i = head + n_super * p + t
+        x, e = one(params["tail"][t], plan[i], x)
+        caches["tail"].append(e)
+    return x, caches
+
+
+def _logits(params, cfg, x):
+    x = L.rms_norm(x, params["final_norm"])
+    head_w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head_w
+
+
+def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            *, collect_cache: bool = False, max_len: int = 0):
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = params["embed"][tokens.long()].to(_dtype(cfg))
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    x, caches = _run_stack(params, cfg, x, positions, collect=collect_cache,
+                           max_len=max_len)
+    return _logits(params, cfg, x), (caches if collect_cache else None)
+
+
+# --------------------------------------------------------------------------
+# Serving: prefill + decode
+# --------------------------------------------------------------------------
+def prefill(params: Params, cfg: ArchConfig, batch, *, max_len: int):
+    logits, cache = forward(params, cfg, batch, collect_cache=True,
+                            max_len=max_len)
+    return logits[:, -1:, :], cache
+
+
+def decode_step(params: Params, cfg: ArchConfig, cache, tokens: torch.Tensor,
+                pos: int):
+    """One decode step.  tokens: (B, 1); pos: host int, the index where
+    the new token's KV is written; attends to cache[<= pos].  The cache is
+    updated in place and returned."""
+    x = params["embed"][tokens.long()].to(_dtype(cfg))
+    plan, head, p, n_super, tail = _period_specs(cfg)
+
+    def dec_layer(lp, spec, xx, entry):
+        h = L.rms_norm(xx, lp["ln1"])
+        out, _, _ = L.attention_decode(lp["attn"], cfg, h, entry["k"],
+                                       entry["v"], pos, window=spec.window)
+        xx = xx + out
+        if spec.moe:
+            xx = xx + L.moe_dense(lp["moe"], cfg, L.rms_norm(xx, lp["ln2"]))
+        return xx
+
+    for i in range(head):
+        x = dec_layer(params["head"][i], plan[i], x, cache["head"][i])
+    for j in range(p if n_super else 0):
+        for s in range(n_super):
+            x = dec_layer(_slice(params["blocks"][j], s),
+                          plan[head + s * p + j], x,
+                          _slice(cache["blocks"][j], s))
+    for t in range(tail):
+        i = head + n_super * p + t
+        x = dec_layer(params["tail"][t], plan[i], x, cache["tail"][t])
+    return _logits(params, cfg, x), cache
+
+
+def cache_specs(cfg: ArchConfig, batch: int,
+                max_len: int) -> Dict[str, List[Dict[str, Tuple]]]:
+    """The cache layout (head/blocks/tail) as ``(shape, dtype)`` pairs."""
+    dt = _dtype(cfg)
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    plan, head, p, n_super, tail = _period_specs(cfg)
+
+    def entry(spec: LayerSpec, lead: Tuple[int, ...] = ()):
+        if spec.kind != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: layer kind {spec.kind!r} is not ported yet")
+        shape = lead + (batch, max_len, K, hd)
+        return {"k": (shape, dt), "v": (shape, dt)}
+
+    return {"head": [entry(plan[i]) for i in range(head)],
+            "blocks": [entry(plan[head + j], (n_super,))
+                       for j in range(p)] if n_super else [],
+            "tail": [entry(plan[head + n_super * p + t])
+                     for t in range(tail)]}

@@ -139,3 +139,86 @@ def test_fleet_slice_on_card_matches_cpu():
             np.testing.assert_array_equal(a, b, err_msg=key)
     np.testing.assert_array_equal(gpu.perf, cpu.perf)
     assert gpu.stats == cpu.stats
+
+
+# ------------------------------------------------ decode_attention, moe_route
+def test_model_kernel_wrappers_reject_cpu_tensors():
+    """Both model kernels' wrappers refuse CPU tensors before building
+    anything: no fallback to the plain version."""
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.moe_route import kernel as RK
+    q = torch.zeros(1, 2, 1, 16)
+    kv = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        DK.decode_attention_cuda(q, kv, kv, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        RK.route_cuda(torch.zeros(4, 8), 2)
+
+
+@pytest.mark.parametrize("S,pos,window,want", [
+    (16, 5, 0, (0, 5, False)), (16, 40, 0, (0, 15, False)),
+    (16, 5, 4, (2, 5, False)), (16, -1, 0, (0, 15, True)),
+    (16, 30, 4, (0, 15, True)), (16, 17, 4, (14, 15, False))])
+def test_decode_valid_range(S, pos, window, want):
+    """The wrapper's position range equals the plain version's mask."""
+    from repro_torch.kernels.decode_attention.kernel import valid_range
+    assert valid_range(S, pos, window) == want
+    t = np.arange(S)
+    mask = (t <= pos) & ((t > pos - window) if window else True)
+    lo, hi, uniform = want
+    if uniform:
+        assert not mask.any()
+    else:
+        assert np.array_equal(np.flatnonzero(mask), np.arange(lo, hi + 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,K,G,hd,pos,window", [
+    (4, 1064, 16, 1, 128, 1054, 0), (4, 1064, 16, 1, 128, 0, 0),
+    (4, 1064, 16, 1, 128, 1063, 256), (1, 1000, 2, 8, 128, 777, 0),
+    (2, 48, 2, 2, 16, 20, 0), (1, 37, 1, 3, 80, 36, 7),
+    (1, 16, 2, 2, 64, -1, 0)])
+def test_decode_attention_kernel_matches_plain_on_card(dtype, B, S, K, G,
+                                                       hd, pos, window):
+    """Tolerance 2e-5 (float32) / 3e-2 (bfloat16), as the reference's
+    kernel tests: the same float32 sums taken in another order."""
+    _need_cuda()
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ref as DR
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(B * 1000 + S + pos)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to("cuda", dt) for s in ((B, K, G, hd), (B, S, K, hd),
+                                         (B, S, K, hd)))
+    before = DK.LAUNCHES
+    got = DK.decode_attention_cuda(q, k, v, pos, window)
+    want = DR.decode_attention_ref(q, k, v, pos, window)
+    torch.cuda.synchronize()
+    assert DK.LAUNCHES == before + 1 and got.dtype == dt
+    tol = 3e-2 if dt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,E,k,renorm", [
+    (4, 64, 8, False), (1024, 64, 8, False), (1024, 64, 8, True),
+    (7, 8, 2, True), (300, 384, 8, True), (5, 512, 64, False)])
+def test_moe_route_kernel_matches_plain_on_card(T, E, k, renorm):
+    """Indices exact; weights rtol 1e-5 / atol 1e-6 (the softmax sum
+    taken in another order).  Every third token's logits tie in pairs."""
+    _need_cuda()
+    from repro_torch.kernels.moe_route import kernel as RK
+    from repro_torch.kernels.moe_route import ref as RR
+    rng = np.random.default_rng(T + E + k)
+    x = rng.standard_normal((T, E)).astype(np.float32)
+    x[::3] = np.repeat(x[::3, : (E + 1) // 2], 2, axis=1)[:, :E]
+    logits = torch.from_numpy(x).cuda()
+    before = RK.LAUNCHES
+    w, idx = RK.route_cuda(logits, k, renorm)
+    w0, idx0 = RR.route_ref(logits, k, renorm)
+    torch.cuda.synchronize()
+    assert RK.LAUNCHES == before + 1
+    assert torch.equal(idx, idx0)
+    torch.testing.assert_close(w, w0, rtol=1e-5, atol=1e-6)

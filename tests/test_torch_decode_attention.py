@@ -1,0 +1,111 @@
+"""Parity of the port's flash-decode plain version
+(``repro_torch.kernels.decode_attention.ref.decode_attention_ref``) with
+the reference's ``decode_attention_ref`` and its Pallas kernel
+``decode_attention_pallas`` in interpret mode, on the CPU, both through
+the reference's jitted ``ops.decode_attention`` (one compile a case).
+
+Tolerances are the reference's own kernel tests' (tests/test_kernels.py):
+2e-5 in float32 (the same float32 sums taken in another order) and 3e-2
+in bfloat16 (the output is rounded to bfloat16 after float32 sums that
+differ in the last bits).
+"""
+import gc
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention.ops import \
+    decode_attention as jax_decode
+from repro_torch.kernels.decode_attention import ops
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+# (B, S, K, G, hd, window, pos, block_s): pos at 0, mid and S-1, windowed
+# and not, MHA/GQA/MQA, and S that is not a multiple of 128
+CASES = [
+    (2, 256, 2, 2, 64, 0, 0, 128),
+    (2, 256, 2, 2, 64, 0, 130, 128),
+    (2, 256, 2, 2, 64, 0, 255, 128),
+    (1, 256, 1, 4, 128, 64, 200, 128),
+    (1, 256, 2, 1, 128, 32, 20, 128),
+    (1, 200, 2, 1, 64, 48, 150, 200),      # ragged S: one Pallas block
+    (2, 37, 2, 2, 16, 0, 36, 37),
+]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_jax_programs():
+    """Drop this module's compiled JAX programs when it ends.  Each holds
+    memory mappings; a test worker that gathers more than the kernel's
+    ``vm.max_map_count`` (65,530) crashes in a later XLA compile."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+
+
+def _inputs(B, S, K, G, hd, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, K, G, hd)).astype(np.float32),
+            rng.standard_normal((B, S, K, hd)).astype(np.float32),
+            rng.standard_normal((B, S, K, hd)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,K,G,hd,window,pos,block_s", CASES)
+def test_decode_plain_matches_reference(B, S, K, G, hd, window, pos,
+                                        block_s, dtype):
+    q, k, v = _inputs(B, S, K, G, hd, S + pos)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, k, v))
+    # bfloat16 inputs: both sides round the same float32 draws
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    got = decode_attention_ref(tq, tk, tv, pos, window)
+    assert got.dtype == tdt and got.shape == (B, K, G, hd)
+    tol = 3e-2 if dtype == "bfloat16" else 2e-5
+    want_ref = jax_decode(jq, jk, jv, jnp.int32(pos), window=window,
+                          use_pallas=False)
+    want_pal = jax_decode(jq, jk, jv, jnp.int32(pos), window=window,
+                          use_pallas=True, interpret=True, block_s=block_s)
+    for want in (want_ref, want_pal):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+
+
+def test_decode_plain_masks_future():
+    """Values past pos do not change the output (the reference's
+    test_decode_attention_masks_future), nor do those before a window."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 256, 2, 2, 64, 9))
+    out = decode_attention_ref(q, k, v, 10)
+    v2 = v.clone()
+    v2[:, 64:] = 123.0
+    k2 = k.clone()
+    k2[:, 11:] = -7.0
+    assert torch.equal(out, decode_attention_ref(q, k2, v2, 10))
+    win = decode_attention_ref(q, k, v, 100, window=16)
+    v3 = v.clone()
+    v3[:, :85] = 55.0
+    assert torch.equal(win, decode_attention_ref(q, k, v3, 100, window=16))
+
+
+def test_decode_plain_fully_masked_is_uniform():
+    """No valid position (pos < 0): the reference's -2^30 mask gives a
+    uniform softmax over the whole cache, not NaN."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 16, 2, 2, 16, 4))
+    out = decode_attention_ref(q, k, v, -1)
+    want = jax_decode(*(jnp.asarray(a.numpy()) for a in (q, k, v)),
+                      jnp.int32(-1), use_pallas=False)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    torch.testing.assert_close(
+        out, v.mean(dim=1)[:, :, None, :].expand_as(out), rtol=2e-5,
+        atol=2e-5)
+
+
+def test_decode_ops_dispatch_by_device():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 32, 2, 1, 16, 1))
+    assert torch.equal(ops.decode_attention(q, k, v, torch.tensor(7)),
+                       decode_attention_ref(q, k, v, 7))
+    with pytest.raises(ValueError, match="device"):
+        ops.decode_attention(q.to("meta"), k.to("meta"), v.to("meta"), 7)

@@ -12,6 +12,7 @@ the port's state, converted to numpy, must pass the reference's
 Each step passes all four optional inputs (padding where unused), so
 the reference compiles one step per engine.
 """
+import gc
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +34,16 @@ torch.set_num_threads(1)     # small tensors; leave the cores to XLA
 # module-level reference engines: jitted graphs compile once per K
 _JENG = {k: JEngine(jbuild_tree(N_LEAVES), capacity=CAP, n_tenants=N_TEN,
                     k=k, controls=JControls(**_CTRL)) for k in (1, 8)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_jax_programs():
+    """Drop this module's compiled JAX programs when it ends.  Each holds
+    memory mappings; a test worker that gathers more than the kernel's
+    ``vm.max_map_count`` (65,530) crashes in a later XLA compile."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 def _np(state):

@@ -2,13 +2,14 @@
 reference ``repro.sim``: the fleet functions elementwise, the whole
 slice (``run_fleet_scenario``) at a small size, a run carried across
 from the reference mid-way, device resolution, and the import rule
-(the port, ``chip_smoke.py`` and ``profile_epoch.py`` import neither
-``jax`` nor ``repro``).
+(the port and the root scripts ``chip_smoke.py``, ``profile_epoch.py``
+and ``profile_serve.py`` import neither ``jax`` nor ``repro``).
 
 JAX compiles are the cost here, so the reference run and its jitted
 epoch are built once per module and shared.
 """
 import ast
+import gc
 import pathlib
 
 import jax
@@ -34,6 +35,16 @@ torch.set_num_threads(1)     # small tensors; leave the cores to XLA
 SMALL = dict(regime="heavy", n_leaves=256, n_training=6, n_inference=6,
              n_batch=4, duration_s=900.0, tick_s=60.0, seed=3, k=8,
              b_max=128, per_tenant_bids=4)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_jax_programs():
+    """Drop this module's compiled JAX programs when it ends.  Each holds
+    memory mappings; a test worker that gathers more than the kernel's
+    ``vm.max_map_count`` (65,530) crashes in a later XLA compile."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 def _equal(a, b, name):
@@ -289,14 +300,15 @@ def test_engine_alone_modes_not_ported():
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "profile_epoch.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "profile_epoch.py",
+              ROOT / "profile_serve.py"]
     return files
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Every module of the port, chip_smoke.py and profile_epoch.py
-    import no ``jax`` (or ``jaxlib``) and nothing of the ``repro``
-    package."""
+    """Every module of the port, chip_smoke.py, profile_epoch.py and
+    profile_serve.py import no ``jax`` (or ``jaxlib``) and nothing of the
+    ``repro`` package."""
     banned = {"jax", "jaxlib", "repro"}
     bad = []
     files = _port_files()

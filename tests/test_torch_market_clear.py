@@ -8,9 +8,11 @@ tolerance).  One case also holds the port against the reference's
 Pallas kernel in interpret mode.  The CUDA kernel is held to the plain
 version in tests/test_torch_cuda.py.
 """
+import gc
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from repro.kernels.market_clear.ops import clear as jax_clear
@@ -23,6 +25,16 @@ NAMES = ("rate", "best_level", "cand_slots", "truncated", "evict")
 # small tensors: one thread, so the port's ops do not contend with the
 # reference's compiler threads in parallel test workers
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_jax_programs():
+    """Drop this module's compiled JAX programs when it ends.  Each holds
+    memory mappings; a test worker that gathers more than the kernel's
+    ``vm.max_map_count`` (65,530) crashes in a later XLA compile."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 def _tree(shape):
