@@ -15,33 +15,38 @@ Phases (one JSON line each):
    tensors at the shapes its main path gives it (market_clear
    ``torch.equal``; decode_attention within 2e-5 in float32 and 3e-2 in
    bfloat16; moe_route indices equal and weights within rtol 1e-5 /
-   atol 1e-6), the whole fleet slice at a small size on the card against
-   the same run on the CPU (identical state, perf and stats), and the
-   reduced OLMoE server on the card against the same run on the CPU in
+   atol 1e-6; ssd_scan's y within 3e-4 in float32 and 4e-2 in bfloat16,
+   its float32 final state within 3e-4, at the mamba2 serving shape, a
+   partial last chunk, B 2 and a reference sweep shape), the whole
+   fleet slice at a small size on the card against the same run on the
+   CPU (identical state, perf and stats), and the reduced OLMoE and
+   mamba2 servers on the card against the same runs on the CPU in
    float32 (the same tokens, the last logits within 1e-4);
 3. the fleet main path: ``run_fleet_scenario`` on ``FLEET_10K`` (10,000
    leaves, 1,000 tenants, 21 epochs), with every launch count set to 0
    just before and read just after; the clearing kernel must run once
    per cascade wave; orders and transfers are held to the committed
    ``BENCH_fig06.json`` row;
-4. the serving main path: ``repro_torch.launch.serve.serve`` on
-   ``olmoe-1b-7b`` at full width (bfloat16, random weights from
-   ``torch.Generator`` seed 0), 8 requests of 1,024-token prompts, 32 new
-   tokens each, 4 slots, with every launch count set to 0 just before
-   and read just after; every request must get 32 tokens, the logits
-   must be finite, decode_attention must run 16 times a decode step and
-   moe_route 16 times a prefill or decode step; it reports time to first
-   token, decode ms per step and output tokens per second;
+4. the serving main paths: ``repro_torch.launch.serve.serve`` on
+   ``olmoe-1b-7b`` and then on ``mamba2-780m``, each at full width
+   (bfloat16, random weights from ``torch.Generator`` seed 0), 8
+   requests of 1,024-token prompts, 32 new tokens each, 4 slots, with
+   every launch count set to 0 just before and read just after each;
+   every request must get 32 tokens and the logits must be finite;
+   OLMoE must run decode_attention 16 times a decode step and moe_route
+   16 times a prefill or decode step, mamba2 ssd_scan 48 times a
+   prefill, and neither path any other kernel; each reports time to
+   first token, decode ms per step and output tokens per second;
 5. a ``kernels`` line: per kernel, its launches on its main path, its
    time per call, the plain version's time and one PyTorch library
-   call's time on the same inputs, and the least time the card could
-   take (bytes over 3.35 TB/s, or operations over the rate for their
-   type, whichever is larger).  Times are CUDA events: for the two
-   model kernels over calls captured in a CUDA graph (device time; the
-   eager times, host enqueue included, stand beside them as
-   ``*_ms_eager``), for market_clear over eager calls (its plain version
-   reads the device, so it cannot be captured; the kernel's 0.13 ms
-   exceeds its enqueue time).
+   call's time on the same inputs (none computes the SSD scan), and the
+   least time the card could take (bytes over 3.35 TB/s, or operations
+   over the rate for their type, whichever is larger).  Times are CUDA
+   events: for the three model kernels over calls captured in a CUDA
+   graph (device time; the eager times, host enqueue included, stand
+   beside them as ``*_ms_eager``), for market_clear over eager calls
+   (its plain version reads the device, so it cannot be captured; the
+   kernel's 0.13 ms exceeds its enqueue time).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 nonzero before it; without CUDA, or without the repository beside it,
@@ -50,6 +55,7 @@ without TF32 (both ``allow_tf32`` switches off).
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import subprocess
@@ -66,7 +72,8 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM, float32 outside tensor cores
 BF16_OPS_PER_S = 989e12          # H100 SXM, bf16 tensor cores, dense
 SERVE_ARCH = "olmoe-1b-7b"
-# the serving main path: 8 requests of 1,024 tokens, 32 new, 4 slots
+SSM_ARCH = "mamba2-780m"
+# the serving main paths: 8 requests of 1,024 tokens, 32 new, 4 slots
 SERVE_FULL = dict(requests=8, prompt_len=1024, max_new=32, slots=4)
 
 _LINES = []
@@ -88,7 +95,9 @@ def _kernel_modules():
     from repro_torch.kernels.decode_attention import kernel as DK
     from repro_torch.kernels.market_clear import kernel as MK
     from repro_torch.kernels.moe_route import kernel as RK
-    return {"market_clear": MK, "decode_attention": DK, "moe_route": RK}
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    return {"market_clear": MK, "decode_attention": DK, "moe_route": RK,
+            "ssd_scan": SK}
 
 
 def _reset_launches() -> None:
@@ -351,15 +360,74 @@ def phase_model_kernels_vs_plain(dev):
                      f"max err {err}")
 
 
-def phase_reduced_server(dev):
-    """The reduced OLMoE server (float32) on the card against the same
-    run on the CPU: the same tokens; the last logits within 1e-4 (the
-    same float32 formulas, summed in another order on each device)."""
+def phase_ssd_vs_plain(dev):
+    """ssd_scan against its plain version: mamba2's serving shape (B 1,
+    S 1,024, H 48, P 64, N 128, Q 256), a partial last chunk (S 1,000),
+    B 2, and the reference sweep shape (2, 512, 8, 64, 128, Q 128), each
+    in float32 and bfloat16, with x, Bm and Cm strided slices of one
+    conv output as ``ssd_block`` passes them.  y within 3e-4 (float32) /
+    4e-2 (bfloat16), the reference's kernel tolerances; the final state,
+    float32 in both, within 3e-4.  Returns the serving-shape cases'
+    inputs and largest errors, keyed by shape and dtype."""
+    import torch
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    from repro_torch.kernels.ssd_scan import ref as SR
+    cases = (("serve", 1, 1024, 48, 64, 128, 256),
+             ("partial_S1000", 1, 1000, 48, 64, 128, 256),
+             ("B2", 2, 1024, 48, 64, 128, 256),
+             ("sweep", 2, 512, 8, 64, 128, 128))
+    measured = {}
+    for name, B, S, H, P, N, Q in cases:
+        for dtype, tol in (("float32", 3e-4), ("bfloat16", 4e-2)):
+            args = SR.sample_inputs(B, S, H, P, N, S + B, dev,
+                                    getattr(torch, dtype))
+            y, st = SK.ssd_scan_cuda(*args, Q)
+            y0, st0 = SR.ssd_scan_ref(*args, Q)
+            torch.cuda.synchronize()
+            err_y = float((y.float() - y0.float()).abs().max())
+            err_s = float((st - st0).abs().max())
+            ok = bool(torch.allclose(y.float(), y0.float(), rtol=tol,
+                                     atol=tol)
+                      and torch.allclose(st, st0, rtol=3e-4, atol=3e-4))
+            emit({"phase": "kernel_vs_plain", "kernel": "ssd_scan",
+                  "case": f"{name}_{dtype}", "shape": [B, S, H, P, N],
+                  "chunk": Q, "max_abs_err_y": err_y,
+                  "max_abs_err_state": err_s,
+                  "tolerance": {"y": tol, "state": 3e-4}, "ok": ok})
+            if not ok:
+                fail(f"ssd_scan differs from its plain version: {name} "
+                     f"{dtype}, max err y {err_y}, state {err_s}")
+            if name == "serve":
+                measured[(B, S, H, P, N, Q, dtype)] = (args,
+                                                       max(err_y, err_s))
+    return measured
+
+
+def _expected_launches(cfg, rep):
+    """Every kernel's launches on a serving run: decode_attention once
+    per attention layer per decode step, moe_route once per MoE layer
+    per prefill or decode step, ssd_scan once per SSD layer per
+    prefill (decode runs the one-token recurrence), market_clear
+    never."""
+    plan = cfg.layer_plan()
+    n_attn = sum(spec.kind == "attn" for spec in plan)
+    n_ssm = sum(spec.kind == "ssm" for spec in plan)
+    n_moe = sum(spec.moe for spec in plan)
+    return {"market_clear": 0,
+            "decode_attention": n_attn * rep.decode_steps,
+            "moe_route": n_moe * (rep.prefills + rep.decode_steps),
+            "ssd_scan": n_ssm * rep.prefills}
+
+
+def phase_reduced_server(dev, arch, prompt_len):
+    """A reduced server (float32) on the card against the same run on
+    the CPU: the same tokens; the last logits within 1e-4 (the same
+    float32 formulas, summed in another order on each device)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     from repro_torch.models.model import init_params
-    cfg = get_config(SERVE_ARCH).reduced()
+    cfg = get_config(arch).reduced()
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 
     def to(tree, d):
@@ -368,20 +436,17 @@ def phase_reduced_server(dev):
         if isinstance(tree, list):
             return [to(v, d) for v in tree]
         return tree.to(d)
-    shape = dict(requests=3, prompt_len=8, max_new=4, slots=2)
+    shape = dict(requests=3, prompt_len=prompt_len, max_new=4, slots=2)
     _reset_launches()
-    gpu = serve(SERVE_ARCH, cfg=cfg, params=to(params, dev), device=dev,
-                **shape)
+    gpu = serve(arch, cfg=cfg, params=to(params, dev), device=dev, **shape)
     launches = _read_launches()
-    cpu = serve(SERVE_ARCH, cfg=cfg, params=params, device="cpu", **shape)
+    cpu = serve(arch, cfg=cfg, params=params, device="cpu", **shape)
     same = [r.out for r in gpu.requests] == [r.out for r in cpu.requests]
     lg, lc = gpu.server.last_logits.cpu(), cpu.server.last_logits
     err = float((lg - lc).abs().max())
     close = bool(torch.allclose(lg, lc, rtol=1e-4, atol=1e-4))
-    want = {"decode_attention": cfg.num_layers * gpu.decode_steps,
-            "moe_route": cfg.num_layers * (gpu.prefills
-                                           + gpu.decode_steps)}
-    counted = all(launches[n] == c for n, c in want.items())
+    want = _expected_launches(cfg, gpu)
+    counted = launches == want
     emit({"phase": "reduced_server_gpu_vs_cpu", "arch": cfg.name,
           "reduced": True, **shape, "tokens_equal": bool(same),
           "tokens": [r.out for r in gpu.requests],
@@ -441,22 +506,20 @@ def phase_main_path(dev):
 
 
 # ------------------------------------------------------------------ phase 4
-def phase_serve(dev):
-    """The serving main path at full width, with every launch count set
+def phase_serve(dev, arch):
+    """A serving main path at full width, with every launch count set
     to 0 just before and read just after."""
     import torch
     from repro_torch.launch.serve import serve
     torch.cuda.reset_peak_memory_stats(dev)
     _reset_launches()
     t0 = time.perf_counter()
-    rep = serve(SERVE_ARCH, full=True, device=dev, **SERVE_FULL)
+    rep = serve(arch, full=True, device=dev, **SERVE_FULL)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _read_launches()
     cfg = rep.cfg
-    n_layers = cfg.num_layers
-    want = {"decode_attention": n_layers * rep.decode_steps,
-            "moe_route": n_layers * (rep.prefills + rep.decode_steps)}
+    want = _expected_launches(cfg, rep)
     finite = bool(torch.isfinite(rep.server.last_logits).all())
     lengths = [len(r.out) for r in rep.requests]
     in_vocab = all(0 <= t < cfg.vocab_size for r in rep.requests
@@ -479,10 +542,9 @@ def phase_serve(dev):
              f"{lengths} tokens (in vocab: {in_vocab})")
     if not finite:
         fail("serving main path produced non-finite logits")
-    for name, count in want.items():
-        if count <= 0 or launches[name] != count:
-            fail(f"{name} launched {launches[name]} times on the serving "
-                 f"main path; expected {count}")
+    if launches != want or not any(want.values()):
+        fail(f"the {cfg.name} serving main path launched {launches}; "
+             f"expected {want}")
     return rep, launches
 
 
@@ -723,12 +785,59 @@ def _moe_route_entry(rep, launches, dev):
             "prefill": pre}
 
 
-def phase_kernels_line(fleet_res, fleet_launches, serve_rep, serve_launches,
-                       dev):
-    emit({"kernels": [
-        _market_clear_entry(fleet_res, fleet_launches),
-        _decode_attention_entry(serve_rep, serve_launches),
-        _moe_route_entry(serve_rep, serve_launches, dev)]})
+def _ssd_operations(B, S, H, P, N, Q):
+    """Float32 operations the SSD scan needs on these shapes (2 per
+    multiply-add): C·Bᵀ and the causal y over the pairs j <= i of each
+    chunk, the state update over every position, and y from the carried
+    state over the positions past the first chunk (the state entering
+    the first chunk is zero)."""
+    pairs = sum(nv * (nv + 1) // 2
+                for nv in (min(Q, S - c0) for c0 in range(0, S, Q)))
+    parts = {"gram": 2 * B * pairs * N,
+             "causal_y": 2 * B * pairs * H * P,
+             "state_update": 2 * B * S * H * P * N,
+             "y_from_state": 2 * B * max(0, S - Q) * H * P * N}
+    return sum(parts.values()), parts
+
+
+def _ssd_scan_entry(rep, launches, measured):
+    """At the mamba2 serving main path's prefill shape: one 1,024-token
+    prompt (B 1, H 48, P 64, N 128, Q 256, bfloat16), on the inputs and
+    with the error of ``phase_ssd_vs_plain``'s case at that shape.  The
+    15 MB of inputs stay in the 50 MB L2 between calls, as they do
+    between the conv that writes them and the scan on the main path."""
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    from repro_torch.kernels.ssd_scan import ref as SR
+    cfg = rep.cfg
+    B, S, Q = 1, SERVE_FULL["prompt_len"], cfg.ssm_chunk
+    H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    key = (B, S, H, P, N, Q, cfg.param_dtype)
+    if key not in measured:
+        fail(f"phase_ssd_vs_plain has no case at the serving shape {key}")
+    args, err = measured[key]
+
+    def kernel(i):
+        return SK.ssd_scan_cuda(*args, Q)
+
+    def plain(i):
+        return SR.ssd_scan_ref(*args, Q)
+    times = {"ms": _graph_ms(kernel, 40), "plain_ms": _graph_ms(plain, 10),
+             "ms_eager": _time_ms(kernel, 40),
+             "plain_ms_eager": _time_ms(plain, 10)}
+    esize = args[0].element_size()
+    nbytes = (esize * (2 * B * S * H * P + 2 * B * S * N)    # x, y, Bm, Cm
+              + 4 * (B * S * H + H + B * H * P * N))       # dt, A, state
+    ops, parts = _ssd_operations(B, S, H, P, N, Q)
+    bound_ms, bound_by = _bound(nbytes, ops, FP32_OPS_PER_S)
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:70",
+            "launches": launches["ssd_scan"], "max_abs_err": err, **times,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "library": "none (no single PyTorch call computes the scan)",
+            "shapes": {"B": B, "S": S, "H": H, "P": P, "N": N, "Q": Q,
+                       "dtype": cfg.param_dtype},
+            "bytes": nbytes, "operations": ops, "operations_by_part": parts}
 
 
 def main() -> None:
@@ -751,12 +860,21 @@ def main() -> None:
     card = phase_card_and_build()
     phase_kernel_vs_plain(dev)
     phase_model_kernels_vs_plain(dev)
+    ssd_measured = phase_ssd_vs_plain(dev)
     phase_small_slice(dev)
-    phase_reduced_server(dev)
+    phase_reduced_server(dev, SERVE_ARCH, 8)
+    phase_reduced_server(dev, SSM_ARCH, 20)   # a whole chunk and a part
     fleet_res, fleet_launches = phase_main_path(dev)
-    serve_rep, serve_launches = phase_serve(dev)
-    phase_kernels_line(fleet_res, fleet_launches, serve_rep, serve_launches,
-                       dev)
+    kernels = [_market_clear_entry(fleet_res, fleet_launches)]
+    rep, launches = phase_serve(dev, SERVE_ARCH)
+    kernels += [_decode_attention_entry(rep, launches),
+                _moe_route_entry(rep, launches, dev)]
+    del rep                    # free OLMoE before the next path's peak
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep, launches = phase_serve(dev, SSM_ARCH)
+    kernels.append(_ssd_scan_entry(rep, launches, ssd_measured))
+    emit({"kernels": kernels})
     emit({"phase": "done", "card": card,
           "total_s": round(time.perf_counter() - t0, 3)})
     OUT.mkdir(exist_ok=True)

@@ -1,37 +1,40 @@
 #!/usr/bin/env python3
-"""Where the OLMoE serving main path's time goes on the card.
+"""Where a serving main path's time goes on the card.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
-    python3 profile_serve.py
+    python3 profile_serve.py [--arch olmoe-1b-7b | mamba2-780m]
 
-Serves ``chip_smoke.py``'s serving main path once (``olmoe-1b-7b`` at
-full width, bfloat16, 8 requests of 1,024-token prompts, 32 new tokens,
-4 slots) to warm up, then, on the same server:
+Serves ``chip_smoke.py``'s serving main path once (the arch, default
+``olmoe-1b-7b``, at full width, bfloat16, 8 requests of 1,024-token
+prompts, 32 new tokens, 4 slots) to warm up, then, on the same server:
 
 1. ``torch.profiler`` over one prefill (``Server._fill_slot``);
 2. ``torch.profiler`` over 5 decode ticks with all 4 slots busy;
 
 and reports for each the wall time, the device's busy share, the kernel
-launches (and those of the two model kernels), and the top operations
-by device and by host time.  Prints one JSON line per result and writes
-them to ``chiprun_out/profile_serve.jsonl``.  Needs CUDA; it never runs
-on the CPU.
+launches (and those of the model kernels: the decode and router kernels
+for OLMoE, the SSD scan's Gram and chunk passes for mamba2), and the top
+operations by device and by host time.  Prints one JSON line per result
+and writes them to ``chiprun_out/profile_serve-<arch>.jsonl``.  Needs
+CUDA; it never runs on the CPU.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import pathlib
 import subprocess
 import sys
 import time
 
-from chip_smoke import SERVE_ARCH, SERVE_FULL
+from chip_smoke import SERVE_ARCH, SERVE_FULL, SSM_ARCH
 from profile_epoch import summarize
 
 HERE = pathlib.Path(__file__).resolve().parent
 DECODE_TICKS = 5
-TAGS = ("decode_kernel", "route_kernel")
+TAGS = ("decode_kernel", "route_kernel", "ssd_gram_kernel",
+        "ssd_chunk_kernel")
 
 
 def _profiled(fn, dev):
@@ -50,6 +53,10 @@ def _profiled(fn, dev):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=SERVE_ARCH,
+                    choices=(SERVE_ARCH, SSM_ARCH))
+    arch = ap.parse_args().arch
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -62,14 +69,14 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     dev = torch.device("cuda", 0)
-    rep = serve(SERVE_ARCH, full=True, device=dev, **SERVE_FULL)
+    rep = serve(arch, full=True, device=dev, **SERVE_FULL)
     srv = rep.server
     rng = np.random.default_rng(1)
     reqs = [Request(rid=100 + i, max_new=SERVE_FULL["max_new"],
                     prompt=rng.integers(0, rep.cfg.vocab_size,
                                         SERVE_FULL["prompt_len"])
                     .astype(np.int32)) for i in range(srv.B)]
-    out = [{"card": card, "warm_up": rep.metrics()}]
+    out = [{"card": card, "arch": arch, "warm_up": rep.metrics()}]
     out.append({"prefill": _profiled(lambda: srv._fill_slot(0, reqs[0]),
                                      dev)})
     for i in range(1, srv.B):
@@ -89,7 +96,8 @@ def main() -> None:
         print(line, flush=True)
     dest = HERE / "chiprun_out"
     dest.mkdir(exist_ok=True)
-    (dest / "profile_serve.jsonl").write_text("\n".join(lines) + "\n")
+    (dest / f"profile_serve-{arch}.jsonl").write_text("\n".join(lines)
+                                                       + "\n")
 
 
 if __name__ == "__main__":

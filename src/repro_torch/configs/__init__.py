@@ -5,11 +5,11 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.configs import olmoe_1b_7b
+from repro_torch.configs import mamba2_780m, olmoe_1b_7b
 from repro_torch.configs.base import ArchConfig, LayerSpec
 
 ARCHS: Dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG
-                                for m in (olmoe_1b_7b,)}
+                                for m in (olmoe_1b_7b, mamba2_780m)}
 
 
 def get_config(name: str) -> ArchConfig:

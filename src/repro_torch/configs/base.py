@@ -4,7 +4,9 @@ It keeps the fields and methods that the serving path of the port's
 architectures reads (``layer_plan``, ``plan_blocks``, ``reduced``), with
 the reference's defaults, so that a config built here and one built
 there describe the same model.  Shape tables, parameter counts and the
-SSM, encoder and sharding fields wait for the slices that use them.
+encoder and sharding fields wait for the slices that use them;
+``ssd_compute_dtype`` is left out (a TPU tuning knob that no config
+sets; the port's scan computes in float32, its default).
 """
 from __future__ import annotations
 
@@ -52,6 +54,12 @@ class ArchConfig:
     first_dense_layers: int = 0
     moe_renormalize: bool = True
 
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    ssm_conv: int = 4
+
     param_dtype: str = "bfloat16"
     attn_softmax_dtype: str = "float32"
 
@@ -59,6 +67,14 @@ class ArchConfig:
         if self.num_heads and not self.head_dim:
             object.__setattr__(self, "head_dim",
                                self.d_model // self.num_heads)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
 
     def layer_plan(self) -> List[LayerSpec]:
         plan: List[LayerSpec] = []
@@ -116,6 +132,9 @@ class ArchConfig:
             num_experts=min(self.num_experts, 8) if self.num_experts else 0,
             num_experts_per_tok=min(self.num_experts_per_tok, 2),
             moe_d_ff=64 if self.num_experts else 0,
+            ssm_state=16 if self.ssm_state else 0,
+            ssm_headdim=16 if self.ssm_state else 64,
+            ssm_chunk=16,
             sliding_window=16 if self.sliding_window else 0,
             param_dtype="float32",
         )

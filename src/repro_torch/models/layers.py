@@ -1,18 +1,20 @@
 """Layer library of the port, twin of ``repro.models.layers`` for the
-layers the serving path of ``olmoe-1b-7b`` runs.
+layers the serving paths of ``olmoe-1b-7b`` and ``mamba2-780m`` run.
 
-Functions keep the reference's names, arguments and layouts.  Two of
+Functions keep the reference's names, arguments and layouts.  Three of
 them reach the port's kernels: ``attention_decode`` calls
-``kernels.decode_attention.ops.decode_attention`` for its attention core
-and ``_router_topk`` calls ``kernels.moe_route.ops.route`` (the CUDA
-kernels on CUDA tensors, their plain versions on CPU tensors).  Prefill
-attention and the projections stay plain PyTorch, as the reference left
-them to XLA.
+``kernels.decode_attention.ops.decode_attention`` for its attention
+core, ``_router_topk`` calls ``kernels.moe_route.ops.route`` and
+``ssd_block`` calls ``kernels.ssd_scan.ops.ssd_scan`` (the CUDA kernels
+on CUDA tensors, their plain versions on CPU tensors).  Prefill
+attention, the projections, the causal conv and the one-token SSM
+recurrence (``ssd_decode``, pure jnp in the reference) stay plain
+PyTorch, as the reference left them to XLA.
 
 JAX promotes mixed float types at a product (``bf16 @ f32`` is an f32
 product); PyTorch raises instead, so the casts JAX applies silently are
 written out here (the router's logits, ``moe_dense``'s combine weights,
-``rms_norm``'s f32 compute).
+``rms_norm``'s f32 compute, the SSM blocks' float32 terms).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.moe_route import ops as route_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
 NEG_INF = -2.0 ** 30  # large-negative for masking (safe in bf16)
 
@@ -173,3 +176,85 @@ def moe_dense(p: Dict[str, torch.Tensor], cfg: ArchConfig,
     y = torch.bmm(F.silu(g) * u, p["wd"])        # (E, T, D)
     out = torch.einsum("te,etd->td", dense_w.to(x.dtype), y)
     return out.reshape(B, S, D)
+
+
+# --------------------------------------------------------------------------
+# Mamba2 (SSD) block
+# --------------------------------------------------------------------------
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)``.  No torch formula
+    gives XLA's CPU bits everywhere; this one is the closest (float32
+    over [-30, 30]: 3,229 of 200,001 points differ, by at most 2.4e-7,
+    where ``F.softplus`` differs on 6,169 by up to 9.5e-7: it switches to
+    the identity above 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv. x: (B, S, C); w: (K, C); b: (C,).  The
+    reference's shifted sum in x's dtype, in its order (a grouped
+    ``conv1d`` would sum in another order, and in TF32 on the card)."""
+    Kk = w.shape[0]
+    w = w.to(x.dtype)
+    b = b.to(x.dtype)
+    xp = F.pad(x, (0, 0, Kk - 1, 0))
+    S = x.shape[1]
+    acc = torch.zeros_like(x)
+    for i in range(Kk):
+        acc = acc + xp[:, i:i + S, :] * w[i]
+    return acc + b
+
+
+def ssd_block(p: Dict[str, torch.Tensor], cfg: ArchConfig, x: torch.Tensor):
+    """Mamba2 block (prefill). x: (B,S,D) -> (out (B,S,D), (conv_tail
+    (B, K-1, d_inner+2N), final_state (B,H,P,N) float32)).  The scan is
+    the SSD kernel; xs, Bm and Cm go to it as strided slices of the conv
+    output."""
+    B, S, D = x.shape
+    din, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    Pd = cfg.ssm_headdim
+    zxbcdt = x @ p["in_proj"]
+    z, xbc_raw, dt = torch.split(zxbcdt, [din, din + 2 * N, H], dim=-1)
+    xbc = F.silu(causal_conv1d(xbc_raw, p["conv_w"], p["conv_b"]))
+    xs, Bm, Cm = torch.split(xbc, [din, N, N], dim=-1)
+    dt = softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"].float())
+    xs = xs.reshape(B, S, H, Pd)
+    y, final_state = ssd_ops.ssd_scan(xs, dt, A, Bm, Cm, cfg.ssm_chunk)
+    y = y + xs * p["D"][None, None, :, None].to(xs.dtype)
+    y = y.reshape(B, S, din)
+    y = rms_norm(y * F.silu(z), p["ssm_norm"])
+    conv_tail = xbc_raw[:, -(cfg.ssm_conv - 1):, :]
+    return y @ p["out_proj"], (conv_tail, final_state)
+
+
+def ssd_decode(p: Dict[str, torch.Tensor], cfg: ArchConfig, x: torch.Tensor,
+               conv_state: torch.Tensor, ssm_state: torch.Tensor):
+    """Single-token SSD recurrence.  x: (B,1,D); conv_state: (B, K-1, C);
+    ssm_state: (B,H,Pd,N) float32.  Returns (out (B,1,D), conv_state,
+    ssm_state), new tensors (the caller writes them into its cache)."""
+    B, _, D = x.shape
+    din, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    Pd = cfg.ssm_headdim
+    zxbcdt = x[:, 0] @ p["in_proj"]
+    z, xbc, dt = torch.split(zxbcdt, [din, din + 2 * N, H], dim=-1)
+    full = torch.cat([conv_state, xbc[:, None, :]], dim=1)     # (B,K,C)
+    conv_out = torch.einsum("bkc,kc->bc", full,
+                            p["conv_w"].to(full.dtype)) \
+        + p["conv_b"].to(full.dtype)
+    xbc_c = F.silu(conv_out)
+    xs, Bm, Cm = torch.split(xbc_c, [din, N, N], dim=-1)
+    dt = softplus(dt.float() + p["dt_bias"])                     # (B,H)
+    A = -torch.exp(p["A_log"].float())
+    xs = xs.reshape(B, H, Pd)
+    dA = torch.exp(dt * A)                                       # (B,H)
+    inp = (dt[..., None] * xs).float()                           # (B,H,Pd)
+    new_state = dA[..., None, None] * ssm_state \
+        + inp[..., None] * Bm[:, None, None, :].float()
+    y = torch.einsum("bhpn,bn->bhp", new_state, Cm.float())       # (B,H,Pd)
+    y = y + xs.float() * p["D"][None, :, None]
+    y = y.reshape(B, din).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["ssm_norm"])
+    out = (y @ p["out_proj"])[:, None, :]
+    return out, full[:, 1:, :], new_state

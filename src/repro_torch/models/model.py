@@ -13,18 +13,21 @@ Parameters are plain dicts of tensors in the reference's layout::
     }
 
 so ``convert.model_params_from_jax`` carries the reference's
-``init_params`` tree across unchanged.  KV caches use the same
-head/blocks/tail layout.  The layers run unrolled (the reference's
-``scan_layers=False``); decode updates the cache in place.
+``init_params`` tree across unchanged.  Caches use the same
+head/blocks/tail layout: K/V for an attention layer, the conv window
+and the float32 SSM state for an SSD layer.  The layers run unrolled
+(the reference's ``scan_layers=False``); decode updates the cache in
+place.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, recip32, resolve_device
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
@@ -88,14 +91,52 @@ def _moe_params(cfg: ArchConfig, ini: _Init, dt):
                             scale=F ** -0.5 / (2 * cfg.num_layers) ** 0.5)}
 
 
+def _linspace32(start: float, stop: float, num: int) -> torch.Tensor:
+    """``jnp.linspace`` in float32 as XLA computes it under jit:
+    ``start * (1 - t) + stop * t`` with ``t = iota * float32(1 / (num -
+    1))`` (a division by a constant becomes a product with its float32
+    reciprocal), and the last point exactly ``stop``."""
+    if num < 2:
+        return torch.full((num,), start, dtype=torch.float32)
+    t = torch.arange(num - 1, dtype=torch.float32) * recip32(num - 1)
+    out = start * (1 - t) + stop * t
+    return torch.cat([out, torch.tensor([stop], dtype=torch.float32)])
+
+
+def _ssm_params(cfg: ArchConfig, ini: _Init, dt):
+    """The reference's SSD block parameters.  The deterministic leaves
+    are built as the reference builds them (``A_log`` is log of its
+    float32 linspace; XLA's float32 log differs from torch's in the last
+    bit on a few points, one of the 48 at full width), the random ones
+    drawn from ``ini``'s generator with the reference's distributions
+    and scales."""
+    D, din, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    conv_ch = din + 2 * N
+    dev = ini.device
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    u = torch.rand((H,), generator=ini.gen, dtype=torch.float32,
+                   device=ini.gen.device) * (hi - lo) + lo
+    return {
+        "in_proj": ini.dense((D, 2 * din + 2 * N + H), dt),
+        "conv_w": ini.dense((cfg.ssm_conv, conv_ch), torch.float32, 0.2),
+        "conv_b": torch.zeros((conv_ch,), dtype=torch.float32, device=dev),
+        "A_log": torch.log(_linspace32(1.0, 16.0, H)).to(dev),
+        "D": torch.ones((H,), dtype=torch.float32, device=dev),
+        "dt_bias": torch.log(torch.expm1(torch.exp(u))).to(dev),
+        "ssm_norm": ini.norm(din),
+        "out_proj": ini.dense((din, D), dt,
+                              scale=din ** -0.5 / (2 * cfg.num_layers) ** 0.5),
+    }
+
+
 def _layer_params(cfg: ArchConfig, spec: LayerSpec, ini: _Init, dt):
-    if spec.kind != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: layer kind {spec.kind!r} is not ported yet")
     if not spec.moe and cfg.d_ff:
         raise NotImplementedError(f"{cfg.name}: dense MLP is not ported yet")
-    p: Dict[str, Any] = {"ln1": ini.norm(cfg.d_model),
-                         "attn": _attn_params(cfg, ini, dt)}
+    p: Dict[str, Any] = {"ln1": ini.norm(cfg.d_model)}
+    if spec.kind == "attn":
+        p["attn"] = _attn_params(cfg, ini, dt)
+    else:
+        p["ssm"] = _ssm_params(cfg, ini, dt)
     if spec.moe:
         p["ln2"] = ini.norm(cfg.d_model)
         p["moe"] = _moe_params(cfg, ini, dt)
@@ -136,12 +177,17 @@ def _apply_layer(p, cfg: ArchConfig, spec: LayerSpec, x, positions, *,
     """Returns (x, cache_entry|None)."""
     entry = None
     h = L.rms_norm(x, p["ln1"])
-    out, (k, v) = L.attention(p["attn"], cfg, h, positions,
-                              window=spec.window, return_kv=True)
-    if collect:
-        pad = max(0, max_len - k.shape[1])
-        entry = {"k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)),
-                 "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))}
+    if spec.kind == "attn":
+        out, (k, v) = L.attention(p["attn"], cfg, h, positions,
+                                  window=spec.window, return_kv=True)
+        if collect:
+            pad = max(0, max_len - k.shape[1])
+            entry = {"k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)),
+                     "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))}
+    else:
+        out, (conv_tail, ssm_state) = L.ssd_block(p["ssm"], cfg, h)
+        if collect:
+            entry = {"conv": conv_tail, "ssm": ssm_state}
     x = x + out
     if spec.moe:
         x = x + L.moe_dense(p["moe"], cfg, L.rms_norm(x, p["ln2"]))
@@ -211,15 +257,23 @@ def prefill(params: Params, cfg: ArchConfig, batch, *, max_len: int):
 def decode_step(params: Params, cfg: ArchConfig, cache, tokens: torch.Tensor,
                 pos: int):
     """One decode step.  tokens: (B, 1); pos: host int, the index where
-    the new token's KV is written; attends to cache[<= pos].  The cache is
-    updated in place and returned."""
+    the new token's KV is written; attends to cache[<= pos] (an SSD layer
+    reads only its conv window and state).  The cache is updated in place
+    and returned."""
     x = params["embed"][tokens.long()].to(_dtype(cfg))
     plan, head, p, n_super, tail = _period_specs(cfg)
 
     def dec_layer(lp, spec, xx, entry):
         h = L.rms_norm(xx, lp["ln1"])
-        out, _, _ = L.attention_decode(lp["attn"], cfg, h, entry["k"],
-                                       entry["v"], pos, window=spec.window)
+        if spec.kind == "attn":
+            out, _, _ = L.attention_decode(lp["attn"], cfg, h, entry["k"],
+                                           entry["v"], pos,
+                                           window=spec.window)
+        else:
+            out, conv, ssm = L.ssd_decode(lp["ssm"], cfg, h, entry["conv"],
+                                          entry["ssm"])
+            entry["conv"].copy_(conv)
+            entry["ssm"].copy_(ssm)
         xx = xx + out
         if spec.moe:
             xx = xx + L.moe_dense(lp["moe"], cfg, L.rms_norm(xx, lp["ln2"]))
@@ -246,11 +300,13 @@ def cache_specs(cfg: ArchConfig, batch: int,
     plan, head, p, n_super, tail = _period_specs(cfg)
 
     def entry(spec: LayerSpec, lead: Tuple[int, ...] = ()):
-        if spec.kind != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: layer kind {spec.kind!r} is not ported yet")
-        shape = lead + (batch, max_len, K, hd)
-        return {"k": (shape, dt), "v": (shape, dt)}
+        if spec.kind == "attn":
+            shape = lead + (batch, max_len, K, hd)
+            return {"k": (shape, dt), "v": (shape, dt)}
+        conv_ch = cfg.d_inner + 2 * cfg.ssm_state
+        return {"conv": (lead + (batch, cfg.ssm_conv - 1, conv_ch), dt),
+                "ssm": (lead + (batch, cfg.ssm_heads, cfg.ssm_headdim,
+                                cfg.ssm_state), torch.float32)}
 
     return {"head": [entry(plan[i]) for i in range(head)],
             "blocks": [entry(plan[head + j], (n_super,))

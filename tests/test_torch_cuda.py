@@ -18,6 +18,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.market_clear import kernel as K
 from repro_torch.kernels.market_clear import ops
 from repro_torch.kernels.market_clear import ref as R
+from repro_torch.kernels.ssd_scan.ref import sample_inputs
 from repro_torch.market_torch.engine import BatchEngine, TreeSpec, \
     build_tree
 
@@ -222,3 +223,62 @@ def test_moe_route_kernel_matches_plain_on_card(T, E, k, renorm):
     assert RK.LAUNCHES == before + 1
     assert torch.equal(idx, idx0)
     torch.testing.assert_close(w, w0, rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------------------------------------ ssd_scan
+def test_ssd_wrapper_rejects_cpu_tensors():
+    """The SSD kernel's wrapper refuses CPU tensors before building
+    anything: no fallback to the plain version."""
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    args = sample_inputs(1, 8, 2, 16, 16, 0, "cpu", torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        SK.ssd_scan_cuda(*args, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,strided", [
+    (2, 64, 4, 16, 32, 16, False), (1, 40, 4, 16, 32, 16, True),
+    (1, 8, 8, 16, 16, 16, True), (2, 300, 3, 24, 40, 128, False),
+    (1, 1000, 48, 64, 128, 256, True)])
+def test_ssd_scan_kernel_matches_plain_on_card(dtype, B, S, H, P, N, chunk,
+                                               strided):
+    """y within 3e-4 (float32) / 4e-2 (bfloat16) of the plain version,
+    the reference's kernel tolerances: the float32 sums run in another
+    order, and the plain version rounds C Bᵀ to bfloat16 for bfloat16
+    inputs as the reference does.  The final state is float32 in both
+    and taken from the same rounded inputs: 3e-4 in both dtypes.  Partial last
+    chunks (S 40, 8, 300, 1,000) and strided slices included; one call
+    counts one launch."""
+    _need_cuda()
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    from repro_torch.kernels.ssd_scan import ref as SR
+    dt_ = getattr(torch, dtype)
+    args = sample_inputs(B, S, H, P, N, S + N, "cuda", dt_, strided)
+    before = SK.LAUNCHES
+    y, st = SK.ssd_scan_cuda(*args, chunk)
+    y0, st0 = SR.ssd_scan_ref(*args, chunk)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES == before + 1
+    assert y.dtype == dt_ and st.dtype == torch.float32
+    tol = 4e-2 if dt_ == torch.bfloat16 else 3e-4
+    torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(st, st0, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_wrapper_refuses_layouts_on_card():
+    """A layout the kernel cannot read raises; it is never read wrongly."""
+    _need_cuda()
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    x, dt, A, Bm, Cm = sample_inputs(1, 32, 2, 16, 16, 1, "cuda",
+                                     torch.float32, strided=False)
+    with pytest.raises(ValueError, match="strides"):
+        SK.ssd_scan_cuda(x.transpose(2, 3).contiguous().transpose(2, 3),
+                         dt, A, Bm, Cm, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        SK.ssd_scan_cuda(x, dt.transpose(1, 2).contiguous().transpose(1, 2),
+                         A, Bm, Cm, 16)
+    with pytest.raises(ValueError, match="chunk"):
+        SK.ssd_scan_cuda(x, dt, A, Bm, Cm, SK.QMAX + 1)
+
