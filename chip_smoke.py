@@ -41,10 +41,13 @@ Phases (one JSON line each):
    time per call, the plain version's time and one PyTorch library
    call's time on the same inputs (none computes the SSD scan), and the
    least time the card could take (bytes over 3.35 TB/s, or operations
-   over the rate for their type, whichever is larger).  Times are CUDA
-   events: for the three model kernels over calls captured in a CUDA
-   graph (device time; the eager times, host enqueue included, stand
-   beside them as ``*_ms_eager``), for market_clear over eager calls
+   over the rate for their type, whichever is larger; the SSD scan's at
+   the bf16 tensor-core rate, with the figure at the float32 rate of the
+   CUDA cores beside it as ``bound_ms_fp32_cores``), and
+   decode_attention's split plan.  Times are CUDA events: for the three
+   model kernels over calls captured in a CUDA graph (device time; the
+   eager times, host enqueue included, stand beside them as
+   ``*_ms_eager``), for market_clear over eager calls
    (its plain version reads the device, so it cannot be captured; the
    kernel's 0.13 ms exceeds its enqueue time).
 
@@ -684,8 +687,8 @@ def _decode_attention_entry(rep, launches):
     """At the serving main path's last decode step: the 16 layers'
     full-width caches (bfloat16, B 4, S 1,064, K 16, hd 128) at the last
     decode position, one layer per call in turn, so every call finds its
-    17 MB of keys and values outside the 50 MB L2 as the model's layer
-    loop does."""
+    ~35 MB of keys and values outside the 50 MB L2 as the model's layer
+    loop does.  ``splits`` is the kernel's split-KV plan there."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import kernel as DK
@@ -725,6 +728,9 @@ def _decode_attention_entry(rep, launches):
     rate = BF16_OPS_PER_S if ck.dtype == torch.bfloat16 else FP32_OPS_PER_S
     bound_ms, bound_by = _bound(nbytes(n), ops, rate)
     full_ms, _ = _bound(nbytes(S), 4 * B * K * G * S * hd, rate)
+    splits, split_len = DK.split_plan(
+        n, B * K, torch.cuda.get_device_properties(ck.device)
+        .multi_processor_count)
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention/kernel.py:78",
@@ -735,6 +741,7 @@ def _decode_attention_entry(rep, launches):
                                          .abs().max()),
             "shapes": {"B": B, "S": S, "K": K, "G": G, "hd": hd,
                        "pos": pos, "dtype": str(ck.dtype)},
+            "splits": splits, "split_len": split_len,
             "bytes": nbytes(n), "operations": ops,
             "bound_ms_full_S": full_ms}
 
@@ -786,7 +793,7 @@ def _moe_route_entry(rep, launches, dev):
 
 
 def _ssd_operations(B, S, H, P, N, Q):
-    """Float32 operations the SSD scan needs on these shapes (2 per
+    """Operations the SSD scan needs on these shapes (2 per
     multiply-add): C·Bᵀ and the causal y over the pairs j <= i of each
     chunk, the state update over every position, and y from the carried
     state over the positions past the first chunk (the state entering
@@ -828,12 +835,18 @@ def _ssd_scan_entry(rep, launches, measured):
     nbytes = (esize * (2 * B * S * H * P + 2 * B * S * N)    # x, y, Bm, Cm
               + 4 * (B * S * H + H + B * H * P * N))       # dt, A, state
     ops, parts = _ssd_operations(B, S, H, P, N, Q)
-    bound_ms, bound_by = _bound(nbytes, ops, FP32_OPS_PER_S)
+    # the contractions run on the tensor cores at the inputs' rate (bf16
+    # on the main path); the bound at the CUDA cores' float32 rate beside
+    rate = BF16_OPS_PER_S if cfg.param_dtype == "bfloat16" \
+        else FP32_OPS_PER_S
+    bound_ms, bound_by = _bound(nbytes, ops, rate)
+    fp32_ms, _ = _bound(nbytes, ops, FP32_OPS_PER_S)
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:70",
             "launches": launches["ssd_scan"], "max_abs_err": err, **times,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms_fp32_cores": fp32_ms, "library_ms": None,
             "library": "none (no single PyTorch call computes the scan)",
             "shapes": {"B": B, "S": S, "H": H, "P": P, "N": N, "Q": Q,
                        "dtype": cfg.param_dtype},

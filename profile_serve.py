@@ -14,8 +14,9 @@ prompts, 32 new tokens, 4 slots) to warm up, then, on the same server:
 
 and reports for each the wall time, the device's busy share, the kernel
 launches (and those of the model kernels: the decode and router kernels
-for OLMoE, the SSD scan's Gram and chunk passes for mamba2), and the top
-operations by device and by host time.  Prints one JSON line per result
+for OLMoE, the SSD scan's three passes for mamba2), the device time of
+each of those kernels, and the top operations by device and by host
+time.  Prints one JSON line per result
 and writes them to ``chiprun_out/profile_serve-<arch>.jsonl``.  Needs
 CUDA; it never runs on the CPU.
 """
@@ -29,12 +30,12 @@ import sys
 import time
 
 from chip_smoke import SERVE_ARCH, SERVE_FULL, SSM_ARCH
-from profile_epoch import summarize
+from profile_epoch import _event_device_us, summarize
 
 HERE = pathlib.Path(__file__).resolve().parent
 DECODE_TICKS = 5
-TAGS = ("decode_kernel", "route_kernel", "ssd_gram_kernel",
-        "ssd_chunk_kernel")
+TAGS = ("decode_split_kernel", "route_kernel", "ssd_chunk_state_kernel",
+        "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
 
 
 def _profiled(fn, dev):
@@ -48,8 +49,11 @@ def _profiled(fn, dev):
         fn()
         torch.cuda.synchronize(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return {"wall_ms": wall_ms, **summarize(prof.key_averages(), wall_ms,
-                                            TAGS)}
+    events = prof.key_averages()
+    kernel_ms = {tag: sum(_event_device_us(e) for e in events
+                          if tag in e.key) / 1e3 for tag in TAGS}
+    return {"wall_ms": wall_ms, **summarize(events, wall_ms, TAGS),
+            "kernel_device_ms": kernel_ms}
 
 
 def main() -> None:

@@ -4,10 +4,12 @@
 
 ``decode_attention_cuda`` checks device, dtype, shape and contiguity,
 turns ``pos`` and the window into the range of valid cache positions,
-allocates the output with ``torch.empty``, launches on the current
-stream without synchronising, raises if the launch was refused, and
-counts the launch in ``LAUNCHES``.  It never falls back to the plain
-version.
+cuts that range into splits (``split_plan``: about four blocks an SM,
+at most ``MAX_SPLITS``, one thread-block cluster of splits per (batch,
+kv-head) that merges them in shared memory), allocates the output with
+``torch.empty``, launches on the current stream without synchronising,
+raises if the launch was refused, and counts the launch in
+``LAUNCHES``.  It never falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -21,20 +23,26 @@ from repro_torch.kernels import build
 NAME = "decode_attention"
 LAUNCHES = 0          # launches of the kernel (plain int, reset by callers)
 HDMAX = 256           # csrc/decode_attention.cu HDMAX
+MAX_SPLITS = 8        # csrc/decode_attention.cu MAX_SPLITS (cluster size)
+BLOCKS_PER_SM = 4     # blocks the split plan aims at on each SM
+MIN_SPLIT = 64        # fewest positions a split is given
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SMS = {}             # device index -> SM count
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load(NAME)
     fn = lib.decode_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.decode_attention_hdmax.argtypes = []
-        lib.decode_attention_hdmax.restype = ctypes.c_int
-        if lib.decode_attention_hdmax() != HDMAX:
-            raise RuntimeError("decode_attention.cu HDMAX differs from "
+        for limit in (lib.decode_attention_hdmax,
+                      lib.decode_attention_max_splits):
+            limit.argtypes, limit.restype = [], ctypes.c_int
+        if (lib.decode_attention_hdmax(),
+                lib.decode_attention_max_splits()) != (HDMAX, MAX_SPLITS):
+            raise RuntimeError("decode_attention.cu limits differ from "
                                "kernel.py")
     return lib
 
@@ -48,6 +56,25 @@ def valid_range(S: int, pos: int, window: int):
     if lo > hi:
         return 0, S - 1, True
     return lo, hi, False
+
+
+def split_plan(n: int, groups: int, sms: int):
+    """``(splits, split_len)``: ``n`` valid positions cut into ``splits``
+    contiguous ranges of ``split_len`` (the last may be shorter, none is
+    empty) for ``groups`` (batch, kv-head) pairs on ``sms`` SMs: at most
+    ``BLOCKS_PER_SM`` blocks an SM and ``MAX_SPLITS`` splits, none under
+    ``MIN_SPLIT`` positions unless there is only one."""
+    splits = max(1, min(BLOCKS_PER_SM * sms // groups, MAX_SPLITS,
+                        n // MIN_SPLIT))
+    split_len = -(-n // splits)
+    return -(-n // split_len), split_len
+
+
+def _sm_count(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -81,15 +108,19 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"head dim {hd} outside [1, {HDMAX}]")
     if S < 1:
         raise ValueError("empty cache")
+    if max(B, K) > 65535:
+        raise ValueError(f"B {B} or K {K} above the grid's 65,535")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
     lo, hi, uniform = valid_range(S, int(pos), int(window))
+    splits, split_len = split_plan(hi - lo + 1, B * K, _sm_count(dev))
     out = torch.empty_like(q)
     lib = _lib()
     err = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], B, S, K, G, hd, lo, hi, int(uniform),
+        _DTYPES[q.dtype], B, S, K, G, hd, lo, hi, int(uniform), split_len,
+        splits,
         float(np.float32(hd ** -0.5)),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -3,11 +3,12 @@ Hopper replacement of the Pallas
 ``repro.kernels.ssd_scan.kernel.ssd_scan_pallas``.
 
 ``ssd_scan_cuda`` checks device, dtype, shape and layout, allocates the
-outputs and the Gram scratch with ``torch.empty``, launches on the
-current stream without synchronising, raises if the launch was refused,
-and counts the call in ``LAUNCHES``.  One call runs two grid passes (the
-chunks' Gram matrices ``C Bᵀ``, then the scan that reads them) and counts
-as one launch of the kernel.  It never falls back to the plain version.
+outputs and the float32 scratch (each chunk's state, each chunk's decay)
+with ``torch.empty``, launches on the current stream without
+synchronising, raises if the launch was refused, and counts the call in
+``LAUNCHES``.  One call runs three grid passes (each chunk's own state;
+the states carried over the chunks; each chunk's outputs) and counts as
+one launch of the kernel.  It never falls back to the plain version.
 
 x, Bm and Cm may be strided along batch and tokens (``ssd_block`` hands
 in slices of one conv output); within a token, x must be (H, P) with
@@ -32,7 +33,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(NAME)
     fn = lib.ssd_scan_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                        + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         for limit in (lib.ssd_scan_qmax, lib.ssd_scan_nmax):
@@ -93,12 +94,14 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     n_chunks = -(-S // chunk)
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=dev)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
-    gram = torch.empty((B, n_chunks, chunk, chunk), dtype=torch.float32,
-                       device=dev)
+    states = torch.empty((B, n_chunks, H, P, N), dtype=torch.float32,
+                         device=dev)
+    cdecay = torch.empty((B, n_chunks, H), dtype=torch.float32, device=dev)
     lib = _lib()
     err = lib.ssd_scan_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), y.data_ptr(), state.data_ptr(), gram.data_ptr(),
+        Cm.data_ptr(), y.data_ptr(), state.data_ptr(), states.data_ptr(),
+        cdecay.data_ptr(),
         _DTYPES[x.dtype], B, S, H, P, N, chunk,
         x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1),
         Cm.stride(0), Cm.stride(1),

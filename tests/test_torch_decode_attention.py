@@ -109,3 +109,97 @@ def test_decode_ops_dispatch_by_device():
                        decode_attention_ref(q, k, v, 7))
     with pytest.raises(ValueError, match="device"):
         ops.decode_attention(q.to("meta"), k.to("meta"), v.to("meta"), 7)
+
+
+# ---------------------------------------------- the CUDA kernel's algebra
+LOG2E = 1.4426950408889634
+
+
+def _split_mirror(q, k, v, pos, window=0, sms=132, tile=8):
+    """Plain-PyTorch mirror of ``csrc/decode_attention.cu``: the valid
+    positions cut by ``split_plan`` into splits (none empty); in each, an
+    online softmax in base 2 over tiles of ``tile`` positions (one max and
+    rescale a tile); the splits' (m, l, acc) merged by log-sum-exp."""
+    from repro_torch.kernels.decode_attention.kernel import split_plan, \
+        valid_range
+    B, S, K, hd = k.shape
+    lo, hi, uniform = valid_range(S, pos, window)
+    splits, L = split_plan(hi - lo + 1, B * K, sms)
+    qs = q.float() * float(np.float32(hd ** -0.5)) * LOG2E
+    parts = []
+    for sp in range(splits):
+        a, e = lo + sp * L, min(hi + 1, lo + (sp + 1) * L)
+        m = torch.full(q.shape[:3], float("-inf"))
+        l = torch.zeros(q.shape[:3])
+        acc = torch.zeros(q.shape, dtype=torch.float32)
+        for t0 in range(a, e, tile):
+            kt, vt = (x[:, t0:min(e, t0 + tile)].float() for x in (k, v))
+            s = torch.einsum("bkgh,btkh->bkgt", qs, kt)
+            if uniform:
+                s = torch.zeros_like(s)
+            mn = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - mn)
+            p = torch.exp2(s - mn[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bkgt,btkh->bkgh",
+                                                        p, vt)
+            m = mn
+        parts.append((m, l, acc))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    lsum = torch.zeros_like(M)
+    out = torch.zeros(q.shape, dtype=torch.float32)
+    for m, l, acc in parts:
+        c = torch.exp2(m - M)
+        lsum = lsum + l * c
+        out = out + acc * c[..., None]
+    return (out / lsum.clamp_min(1e-30)[..., None]).to(q.dtype), splits
+
+
+# (B, S, K, G, hd, window, pos, splits): the wrapper's plan on 132 SMs
+# (several splits, a ragged last split, one split), pos inside what
+# would be the first split, a window cut into splits, the uniform case
+# over several splits, G 8, hd 80
+SPLIT_CASES = [
+    (2, 256, 2, 2, 64, 0, 255, 4),
+    (1, 200, 2, 1, 64, 0, 199, 3),
+    (2, 37, 2, 2, 16, 0, 36, 1),
+    (1, 256, 2, 2, 64, 0, 10, 1),
+    (1, 256, 2, 1, 128, 150, 200, 2),
+    (1, 300, 2, 2, 16, 0, -1, 4),
+    (1, 150, 1, 8, 80, 0, 149, 2),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,K,G,hd,window,pos,splits", SPLIT_CASES)
+def test_split_kv_mirror_matches_reference(B, S, K, G, hd, window, pos,
+                                           splits, dtype):
+    """The split-KV algebra the CUDA kernel runs, against the reference's
+    jnp oracle at the reference's kernel tolerances."""
+    q, k, v = _inputs(B, S, K, G, hd, S + pos + 1)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    got, n_splits = _split_mirror(
+        *(torch.from_numpy(a).to(tdt) for a in (q, k, v)), pos, window)
+    assert n_splits == splits
+    want = jax_decode(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                      jnp.int32(pos), window=window, use_pallas=False)
+    tol = 3e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("n,groups,sms", [
+    (1055, 64, 132), (1, 64, 132), (129, 64, 132), (1000, 2, 132),
+    (64, 1, 132), (100000, 1, 132), (500, 600, 132), (1055, 64, 114)])
+def test_split_plan_covers_every_position(n, groups, sms):
+    """Every valid position in exactly one split, no split empty, none
+    shorter than MIN_SPLIT unless there is one, at most MAX_SPLITS (one
+    cluster), and no more blocks than the plan aims at."""
+    from repro_torch.kernels.decode_attention.kernel import BLOCKS_PER_SM, \
+        MAX_SPLITS, MIN_SPLIT, split_plan
+    splits, L = split_plan(n, groups, sms)
+    assert (splits - 1) * L < n <= splits * L
+    assert 1 <= splits <= MAX_SPLITS
+    assert splits == 1 or L >= MIN_SPLIT
+    assert splits == 1 or groups * splits <= BLOCKS_PER_SM * sms

@@ -140,3 +140,82 @@ def test_ops_dispatch():
     with pytest.raises(ValueError, match="device"):
         ops.ssd_scan(*(a.to("meta") for a in args), chunk=16)
 
+
+
+# ---------------------------------------------- the CUDA kernel's algebra
+def _three_pass_mirror(x, dt, A, Bm, Cm, chunk):
+    """Plain-PyTorch mirror of ``csrc/ssd_scan.cu``'s decomposition, with
+    its roundings for bfloat16 inputs: (1) each chunk's own state
+    (x dt exp(cum_last - cum))ᵀ B, that operand split into a bfloat16
+    head and remainder; (2) the states carried over the chunks in order;
+    (3) each chunk's y = (C Bᵀ ∘ L ∘ dt) x, L formed only for j <= i and
+    W rounded to the inputs' dtype, plus exp(cum) C S_cᵀ with S_c rounded
+    likewise (chunk 0 enters with zero state)."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    nc = -(-s // chunk)
+
+    def rnd(t):                       # an MMA operand formed in float32
+        return t.to(x.dtype).float()
+    xf, Bf, Cf = x.float(), Bm.float(), Cm.float()
+    local = torch.zeros((b, nc, h, p, n))
+    cdecay = torch.zeros((b, nc, h))
+    cums = []
+    for c in range(nc):                                   # pass 1
+        s0, nv = c * chunk, min(chunk, s - c * chunk)
+        d = dt[:, s0:s0 + nv]
+        cum = torch.cumsum(d * A, dim=1)                  # (b, nv, h)
+        cums.append((d, cum))
+        v = xf[:, s0:s0 + nv] * (d * torch.exp(cum[:, -1:] - cum))[..., None]
+        hi = rnd(v)
+        for part in (hi, rnd(v - hi)) if x.dtype == torch.bfloat16 else (v,):
+            local[:, c] += torch.einsum("bjhp,bjn->bhpn", part,
+                                        Bf[:, s0:s0 + nv])
+        cdecay[:, c] = cum[:, -1]
+    entering, state = [], torch.zeros((b, h, p, n))
+    for c in range(nc):                                   # pass 2
+        entering.append(state)
+        state = torch.exp(cdecay[:, c])[..., None, None] * state + local[:, c]
+    y = torch.zeros((b, s, h, p))
+    for c in range(nc):                                   # pass 3
+        s0 = c * chunk
+        d, cum = cums[c]
+        nv = d.shape[1]
+        G = torch.einsum("bin,bjn->bij", Cf[:, s0:s0 + nv], Bf[:, s0:s0 + nv])
+        mask = torch.ones((nv, nv), dtype=torch.bool).tril()[None, :, :, None]
+        gap = cum[:, :, None, :] - cum[:, None, :, :]     # (b, i, j, h)
+        L = torch.exp(torch.where(mask, gap, float("-inf")))
+        W = rnd(G[..., None] * L * d[:, None, :, :])
+        yc = torch.einsum("bijh,bjhp->bihp", W, xf[:, s0:s0 + nv])
+        if c:
+            yc = yc + torch.exp(cum)[..., None] * torch.einsum(
+                "bin,bhpn->bihp", Cf[:, s0:s0 + nv], rnd(entering[c]))
+        y[:, s0:s0 + nv] = yc
+    return y.to(x.dtype), state
+
+
+# (B, S, H, P, N, chunk): several chunks, a partial last chunk, S < Q,
+# S = Q (one chunk), the reduced widths (Q, N, P 16), odd widths
+MIRROR_CASES = [
+    (2, 64, 4, 16, 32, 16),
+    (1, 40, 4, 16, 32, 16),
+    (2, 13, 2, 16, 16, 16),
+    (1, 48, 2, 16, 16, 48),
+    (1, 37, 3, 24, 40, 8),
+    (1, 100, 2, 16, 16, 16),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", MIRROR_CASES)
+def test_three_pass_mirror_matches_reference(B, S, H, P, N, chunk, dtype):
+    """The decomposition the CUDA kernel runs, with its bfloat16
+    roundings, against the reference's jnp oracle at the reference's
+    kernel tolerances (y 3e-4 / 4e-2, the float32 state 3e-4)."""
+    j, t = _both(_inputs(B, S, H, P, N, S * 11 + chunk), dtype)
+    y, st = _three_pass_mirror(*t, chunk)
+    assert y.dtype == t[0].dtype and tuple(st.shape) == (B, H, P, N)
+    tol = 4e-2 if dtype == "bfloat16" else 3e-4
+    jy, jst = jax_ssd_scan(*j, chunk=chunk, use_pallas=False)
+    _close(y, jy, tol, "y vs ref")
+    _close(st, jst, 3e-4, "state vs ref")
