@@ -44,12 +44,11 @@ Phases (one JSON line each):
    over the rate for their type, whichever is larger; the SSD scan's at
    the bf16 tensor-core rate, with the figure at the float32 rate of the
    CUDA cores beside it as ``bound_ms_fp32_cores``), and
-   decode_attention's split plan.  Times are CUDA events: for the three
-   model kernels over calls captured in a CUDA graph (device time; the
-   eager times, host enqueue included, stand beside them as
-   ``*_ms_eager``), for market_clear over eager calls
-   (its plain version reads the device, so it cannot be captured; the
-   kernel's 0.13 ms exceeds its enqueue time).
+   decode_attention's split plan.  Times are CUDA events over calls
+   captured in a CUDA graph (device time; the eager times, host enqueue
+   included, stand beside them as ``*_ms_eager``); market_clear's plain
+   version reads the device, so it cannot be captured and its time is
+   eager.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 nonzero before it; without CUDA, or without the repository beside it,
@@ -236,10 +235,12 @@ def phase_kernel_vs_plain(dev):
     from repro_torch.market_torch.engine import TreeSpec, build_tree
     names = ("rate", "best_level", "cand_slots", "truncated", "evict")
     cases = []
-    for k in (1, 8, 16):
+    for k in (1, 8, 16, 32):
         cases.append((f"n10000_k{k}", *_book(
             build_tree(10000), k, 100 + k, 8192, 1000, dev,
             root_frac=0.5, cap=16384), None))
+    cases.append(("n768_k8", *_book(build_tree(768), 8, 11, 700, 9, dev),
+                  None))
     cases.append(("n24_nonpow2_k4", *_book(
         TreeSpec(24, (1, 4, 12, 24)), 4, 7, 120, 9, dev), None))
     cases.append(("lap_reused_seq_ties", *_lap_book(dev), None))
@@ -610,22 +611,19 @@ def _timings(kernel, plain, library, reps, plain_reps):
 def _clear_bound(aggs, n_leaves, k, strides):
     """Least time for one clearing pass on these inputs: each input read
     once and each output written once over the memory rate, or the
-    comparisons this data needs (one 2k-wide k-pass selection of ~3
-    compares per entry for each populated level under the root, plus
-    the leaf stage) over the float32 rate — whichever is larger."""
-    pk, tk, sk, qk, p2, t2, s2, q2 = aggs
+    operations this data needs over the float32 rate, whichever is
+    larger.  The operations: one merge of two ranked k-lists (2k steps of
+    a price and a seq compare) for each node under the root whose own
+    list is live (a node with a dead list takes its parent's path), and
+    the leaf stage (8 operations per slate column)."""
+    pk = aggs[0]
     n_seg = pk.shape[0]
     in_bytes = 4 * (4 * n_seg * k + 4 * n_seg + n_seg + 2 * n_leaves)
     out_bytes = 4 * (4 * n_leaves + n_leaves * (k + 1))
     nbytes = in_bytes + out_bytes
-    off, live_levels = 0, 0
-    for d, s in enumerate(strides):
-        nodes = -(-n_leaves // s)
-        if d < len(strides) - 1 and bool(
-                (pk[off:off + nodes, 0] > -5e29).any()):
-            live_levels += 1
-        off += nodes
-    ops = n_leaves * (live_levels * k * 3 * 2 * k + 8 * (k + 1))
+    top_off = n_seg - (-(-n_leaves // strides[-1]))
+    live_nodes = int((pk[:top_off, 0] > -5e29).sum())
+    ops = live_nodes * 2 * k * 2 + n_leaves * 8 * (k + 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -659,7 +657,10 @@ def _market_clear_entry(res, launches):
         fail("market_clear differs from its plain version on the main "
              "path's final book")
     err = float((plain[0] - got[0]).abs().max())
-    ms = _time_ms(lambda i: K.clear_cuda(*aggs, *args), 200)
+    ms = _graph_ms(lambda i: K.clear_cuda(*aggs, *args), 200)
+    ms_eager = _time_ms(lambda i: K.clear_cuda(*aggs, *args), 200)
+    # the plain version reads the device (a level's liveness), so it
+    # cannot be captured: its time is eager
     plain_ms = _time_ms(lambda i: R.clear_sorted_from_aggs(aggs, *args, k),
                         20)
     bound_ms, bound_by, nbytes, ops = _clear_bound(aggs, tree.n_leaves, k,
@@ -668,7 +669,8 @@ def _market_clear_entry(res, launches):
             "source": "src/repro_torch/csrc/market_clear.cu",
             "replaces": "src/repro/kernels/market_clear/kernel.py:281",
             "launches": launches["market_clear"], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "ms": ms, "ms_eager": ms_eager, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
             "shapes": {"n_seg": int(n_seg), "k": k,
                        "n_leaves": tree.n_leaves},

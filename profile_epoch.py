@@ -17,8 +17,9 @@ epochs) through ``EpochRunner.drive`` twice on CUDA:
    its orders, cascade waves and clearing-kernel launches.
 2. ``torch.profiler`` over epochs 1 and 2 (the heaviest): the sum of
    device kernel time against wall time (the device's busy share), the
-   number of kernel launches and of device-to-host reads, and the top
-   operations by device and by host time.
+   number of kernel launches and of device-to-host reads, the clearing
+   kernel's launches and device time (in all and per cascade wave), and
+   the top operations by device and by host time.
 
 Prints one JSON line per result and writes them to
 ``chiprun_out/profile_epoch.jsonl``.  Needs CUDA; it never runs on the CPU.
@@ -36,6 +37,7 @@ HERE = pathlib.Path(__file__).resolve().parent
 PHASES = (("fleet", "policy"), ("eng", "cancel_all"), ("eng", "step"),
           ("fleet", "after_step"), ("fleet", "advance"))
 PROFILED_EPOCHS = (1, 2)
+CLEAR_TAG = "clear_tree_kernel"      # the clearing kernel's CUDA name
 
 
 def _scenario(dev):
@@ -128,7 +130,13 @@ def trace_epochs(dev):
     wall_ms = sum(epoch_s[first:last + 1]) * 1e3
     out = {"profiled_epochs": list(PROFILED_EPOCHS), "wall_ms": wall_ms,
            "waves": started[last + 1] - started[first]}
-    out.update(summarize(traced["events"], wall_ms, ("clear_kernel",)))
+    events = traced["events"]
+    out.update(summarize(events, wall_ms, (CLEAR_TAG,)))
+    clear_ms = sum(_event_device_us(e) for e in events
+                   if CLEAR_TAG in e.key) / 1e3
+    out.update({f"{CLEAR_TAG}_device_ms": clear_ms,
+                f"{CLEAR_TAG}_device_ms_per_wave":
+                    clear_ms / out["waves"] if out["waves"] else None})
     return out
 
 

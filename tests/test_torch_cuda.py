@@ -96,15 +96,60 @@ def test_library_name_follows_source_hash():
     assert path.name.startswith("market_clear-") and path.suffix == ".so"
 
 
+def _lap_book(dev):
+    """Equal-price root bids in slots reused after a ring lap, so slot
+    order inverts seq order (the reference's lap-reused seq ties)."""
+    tree = build_tree(64)
+    eng = BatchEngine(tree, capacity=8, k=4, device=dev)
+    st = eng.init_state()
+    root = tree.n_levels - 1
+
+    def bids(tenants):
+        m = len(tenants)
+        return (torch.full((m,), 5.0, device=dev),
+                torch.full((m,), root, dtype=torch.int32, device=dev),
+                torch.zeros((m,), dtype=torch.int32, device=dev),
+                torch.tensor(tenants, dtype=torch.int32, device=dev))
+    st = eng.place(st, *bids(list(range(8))))
+    for slot, ten in ((5, 8), (2, 9)):
+        st = eng.cancel(st, torch.tensor([slot], dtype=torch.int32,
+                                         device=dev))
+        st = eng.place(st, *bids([ten]))
+    return eng, st
+
+
+def _truncated_book(dev):
+    """A host-level book deeper than k: truncated slates."""
+    tree = build_tree(512)
+    eng = BatchEngine(tree, capacity=4096, k=2, device=dev)
+    st = eng.init_state()
+    rng = np.random.default_rng(5)
+    m = 40
+    st = eng.place(st, torch.from_numpy(
+        rng.uniform(3, 9, m).astype(np.float32)).to(dev),
+        torch.ones(m, dtype=torch.int32, device=dev),
+        torch.zeros(m, dtype=torch.int32, device=dev),
+        torch.arange(m, dtype=torch.int32, device=dev))
+    return eng, st
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,k", [("n1024", 1), ("n1024", 8),
-                                     ("n10000", 16), ("n24", 4)])
+                                     ("n10000", 16), ("n24", 4),
+                                     ("n10000", 32), ("n768", 8),
+                                     ("lap", 4), ("trunc", 2)])
 def test_kernel_matches_plain_on_card(shape, k):
     _need_cuda()
-    tree = TreeSpec(24, (1, 4, 12, 24)) if shape == "n24" \
-        else build_tree(int(shape[1:]))
-    eng, st = _book(tree, k, 41 + k, "cuda",
-                    n_bids=8192 if shape == "n10000" else 700)
+    if shape == "lap":
+        eng, st = _lap_book("cuda")
+    elif shape == "trunc":
+        eng, st = _truncated_book("cuda")
+    else:
+        tree = TreeSpec(24, (1, 4, 12, 24)) if shape == "n24" \
+            else build_tree(int(shape[1:]))
+        eng, st = _book(tree, k, 41 + k, "cuda",
+                        n_bids=8192 if shape == "n10000" else 700)
+    assert eng.k == k
     aggs = _aggs(eng, st)
     args = (tuple(st["floor"]), eng.level_off, eng.tree.strides,
             st["owner"], st["limit"])
@@ -114,6 +159,93 @@ def test_kernel_matches_plain_on_card(shape, k):
     torch.cuda.synchronize()
     assert K.LAUNCHES == before + 1
     for name, a, b in zip(NAMES, plain, got):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_kernel_in_cuda_graph_matches_eager():
+    """Captured in a CUDA graph and replayed, the kernel writes the same
+    five outputs as an eager call (its level table is built on the
+    first, eager call)."""
+    _need_cuda()
+    eng, st = _book(build_tree(10000), 16, 57, "cuda", n_bids=8192)
+    aggs = _aggs(eng, st)
+    args = (tuple(st["floor"]), eng.level_off, eng.tree.strides,
+            st["owner"], st["limit"])
+    eager = K.clear_cuda(*aggs, *args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = K.clear_cuda(*aggs, *args)
+    for x in replayed:
+        x.fill_(-7)
+    graph.replay()
+    torch.cuda.synchronize()
+    for name, a, b in zip(NAMES, eager, replayed):
+        assert torch.equal(a, b), name
+    assert (replayed[2] >= -1).all()
+
+
+def _hazard_aggs(tree, k, seed, dev):
+    """Aggregates no engine makes, for every segment: few prices and
+    seqs (equal (price, seq) keys, equal prices), ±0.0, unsorted lists,
+    dead entries with stray payloads, a NaN price in some lists, random
+    fall-backs; every level has a live head, so the plain version merges
+    every node."""
+    rng = np.random.default_rng(seed)
+    n_seg = sum(tree.nodes_at(d) for d in range(tree.n_levels))
+    p = rng.choice(np.float32([4, 3, 2, 1, 0, -0.0, -1e30]), (n_seg, k))
+    p[rng.random((n_seg, k)) < 0.5] = -1e30
+    p[rng.random(n_seg) < 0.02, 0] = np.nan
+    p[:, 0] = np.where(rng.random(n_seg) < 0.1, np.float32(5), p[:, 0])
+    off = 0
+    for d in range(tree.n_levels):
+        p[off, 0] = 6.0
+        off += tree.nodes_at(d)
+    t = rng.integers(-1, 6, (n_seg, k))
+    s = rng.integers(-1, 99, (n_seg, k))
+    q = rng.integers(0, 5, (n_seg, k))
+    p2 = rng.choice(np.float32([2.5, 1.5, -1e30]), n_seg)
+    t2, s2, q2 = (rng.integers(-1, 6, n_seg), rng.integers(-1, 99, n_seg),
+                  rng.integers(0, 5, n_seg))
+    i32 = np.int32
+    return tuple(torch.from_numpy(x.astype(t_)).to(dev) for x, t_ in (
+        (p, np.float32), (t, i32), (s, i32), (q, i32), (p2, np.float32),
+        (t2, i32), (s2, i32), (q2, i32)))
+
+
+DEEP = TreeSpec(64, (1, 1, 2, 4, 64))   # k 32: a 95 KB plan, opted into
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k", [("n768", 8), ("n24", 4),
+                                     ("n10000", 16), ("n768", 32),
+                                     ("deep", 32)])
+def test_kernel_matches_plain_on_hazard_lists_on_card(shape, k):
+    """NaN prices, equal keys, ±0.0 and unsorted or stray lists: the
+    kernel's merges (and the merges it proves to be the identity and
+    skips) equal the plain version's; the deep tree's plan needs more
+    than 48 KB of shared memory a block."""
+    _need_cuda()
+    tree = {"n24": TreeSpec(24, (1, 4, 12, 24)), "deep": DEEP}.get(shape) \
+        or build_tree(int(shape[1:]))
+    aggs = _hazard_aggs(tree, k, 70 + k, "cuda")
+    rng = np.random.default_rng(k)
+    level_off, acc, floors = [], 0, []
+    for d in range(tree.n_levels):
+        level_off.append(acc)
+        acc += tree.nodes_at(d)
+        floors.append(torch.from_numpy(rng.choice(
+            np.float32([0, 0.5, 2]), tree.nodes_at(d))).cuda())
+    n = tree.n_leaves
+    owner = torch.from_numpy(rng.integers(-1, 6, n).astype(np.int32)).cuda()
+    limit = torch.from_numpy(rng.uniform(1, 6, n).astype(np.float32)).cuda()
+    args = (tuple(floors), tuple(level_off), tree.strides, owner, limit)
+    got = K.clear_cuda(*aggs, *args)
+    plain = R.clear_sorted_from_aggs(aggs, *args, k)
+    torch.cuda.synchronize()
+    assert torch.allclose(got[0], plain[0], rtol=0, atol=0, equal_nan=True)
+    for name, a, b in zip(NAMES[1:], plain[1:], got[1:]):
         assert torch.equal(a, b), name
 
 

@@ -2,8 +2,9 @@
 reference ``repro.sim``: the fleet functions elementwise, the whole
 slice (``run_fleet_scenario``) at a small size, a run carried across
 from the reference mid-way, device resolution, and the import rule
-(the port and the root scripts ``chip_smoke.py``, ``profile_epoch.py``
-and ``profile_serve.py`` import neither ``jax`` nor ``repro``).
+(the port and the root scripts ``chip_smoke.py``, ``profile_epoch.py``,
+``profile_serve.py`` and ``profile_clear.py`` import neither ``jax`` nor
+``repro``).
 
 JAX compiles are the cost here, so the reference run and its jitted
 epoch are built once per module and shared.
@@ -301,14 +302,14 @@ def test_engine_alone_modes_not_ported():
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "profile_epoch.py",
-              ROOT / "profile_serve.py"]
+              ROOT / "profile_serve.py", ROOT / "profile_clear.py"]
     return files
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Every module of the port, chip_smoke.py, profile_epoch.py and
-    profile_serve.py import no ``jax`` (or ``jaxlib``) and nothing of the
-    ``repro`` package."""
+    """Every module of the port, chip_smoke.py and the profilers
+    (profile_epoch.py, profile_serve.py, profile_clear.py) import no
+    ``jax`` (or ``jaxlib``) and nothing of the ``repro`` package."""
     banned = {"jax", "jaxlib", "repro"}
     bad = []
     files = _port_files()
