@@ -2,9 +2,9 @@
 the PyTorch engine — one ``BatchEngine`` per resource type, its
 ``TreeSpec`` derived from the topology, and the array-native epoch
 hooks the fleet drives (``leaf_view``, ``cancel_all``,
-``step_arrays``, ``set_floor``, ``reset``).  Fleet tenant ids are
-engine tenant ids.  The string-tenant order facade of the reference is
-not ported here.
+``step_arrays``, ``set_floor``, ``set_health``, ``reset``).  Fleet
+tenant ids are engine tenant ids.  The string-tenant order facade of
+the reference is not ported here.
 """
 from __future__ import annotations
 
@@ -44,7 +44,8 @@ class BatchMarket:
     def _build_tree(self, rtype: str, root: int, capacity: int) -> None:
         """Regular tree of one resource type: the stride at level d is
         the largest leaf count under a node of that level; topology
-        nodes map to (rtype, level, first_leaf // stride)."""
+        nodes, leaves included (a leaf is its own level-0 ancestor), map
+        to (rtype, level, first_leaf // stride)."""
         topo = self.topo
         leaves = topo.leaves_of(root)
         depth = max(len(topo.ancestors(leaf)) for leaf in leaves)
@@ -132,3 +133,16 @@ class BatchMarket:
                                     tuple(floors), None)
         self.states[rtype] = st
         self._count(transfers)
+
+    def set_health(self, node: int, value: int) -> None:
+        """Set failure-domain health at any topology node (leaf, host,
+        rack, zone): every engine leaf under it gets ``value``
+        (``engine.HEALTH_UP/DRAINING/DOWN``) in one scatter.  Owners on
+        newly-down leaves are force-evicted by the next step."""
+        rtype, d, idx = self._node_map[node]
+        eng = self.engines[rtype]
+
+        def one(v):
+            return torch.tensor([v], dtype=torch.int32, device=self.device)
+        self.states[rtype] = eng.set_health(self.states[rtype], one(d),
+                                            one(idx), one(value))

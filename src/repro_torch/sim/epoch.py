@@ -67,12 +67,15 @@ class EpochRunner:
         if self.eng.device.type == "cuda":
             torch.cuda.synchronize(self.eng.device)
 
-    def drive(self, params, fleet_state, duration_s: float, tick_s: float
-              ) -> Tuple[dict, List[float], Dict[str, int]]:
+    def drive(self, params, fleet_state, duration_s: float, tick_s: float,
+              injector=None) -> Tuple[dict, List[float], Dict[str, int]]:
         """Run epochs over [0, duration_s] at tick_s cadence from the
         market's engine state, then publish the final state and the
         accumulated stats back onto the market.  Returns the fleet
-        state, each epoch's wall seconds and the stats."""
+        state, each epoch's wall seconds and the stats.
+
+        ``injector`` (optional ``sim.faults.FaultInjector``) applies the
+        health events due at each tick before that tick's epoch."""
         market, rtype = self.market, self.rtype
         est = dict(market.states[rtype])
         est["floor"] = tuple(est["floor"])
@@ -83,6 +86,8 @@ class EpochRunner:
         t = 0.0
         while t <= duration_s:
             t0 = time.perf_counter()
+            if injector is not None:
+                est = injector.apply_health(self.eng, est, t)
             est, fleet_state, stats = self.epoch(params, est, fleet_state,
                                                  stats, t)
             self._sync()

@@ -3,14 +3,17 @@
 scale (docs/DESIGN.md §8), with performance retention under contention
 (paper §5.1) as the metric.
 
-``alone`` selects the retention denominator: ``"analytic"`` (the
-uncontended counterfactual, one vectorized run) or ``"none"`` (perf
-only).  The reference's engine-driven alone modes are not ported yet.
+``alone`` selects the retention denominator (see
+``FleetScenarioConfig``).  The engine-alone runs go through the same
+``EpochRunner.drive`` as the multi-tenant run; the reference's unfused
+six-dispatch loop, which exists there only as the bit-identity twin of
+its fused epoch, has no counterpart here.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -108,8 +111,16 @@ class FleetScenarioConfig:
     k: int = 16                     # top-K cascade width at fleet scale
     b_max: int = 1024               # bid-batch capacity per epoch
     per_tenant_bids: int = 8
-    alone: str = "analytic"         # retention denominator: "analytic"
-    #   (uncontended counterfactual) or "none" (perf only)
+    alone: str = "analytic"         # retention denominator:
+    #   "analytic" — uncontended counterfactual, one vectorized run
+    #   "engine"   — per-tenant alone runs through the engine (toy scale)
+    #   "engine_sampled" — engine-alone for a per-kind sample, analytic
+    #                 x per-kind engine/analytic ratio for the rest
+    #   "none"     — skip (perf only)
+    alone_sample: int = 4           # per-kind sample size (engine_sampled)
+    faults: Optional[list] = None   # fault schedule: a list of
+    # sim.faults.FaultEvent records; a fresh FaultInjector is built per
+    # drive (so alone runs and reruns replay the identical schedule)
     controls: VolatilityControls = field(
         default_factory=lambda: VolatilityControls(max_bid_multiple=4.0,
                                                    floor_fall_rate=0.5,
@@ -123,12 +134,12 @@ class FleetScenarioConfig:
 # The paper's scale claim as one scenario: the 10k case of
 # benchmarks/fig06_contention.py SCALE_CASES (the committed
 # fig06/scale/fused_epoch/backend=jnp/n=10000 row) -- 1,000 tenants,
-# 21 epochs, a 16,384-slot bid table -- with perf only (its engine-sampled
-# retention denominator is not ported; orders and transfers do not use it).
+# 21 epochs, a 16,384-slot bid table, the sampled engine-alone retention
+# denominator (4 tenants of each kind).
 FLEET_10K = dict(regime="heavy", n_leaves=10000, n_training=384,
                  n_inference=384, n_batch=232, duration_s=1200.0,
                  tick_s=60.0, seed=1, k=16, b_max=8192, per_tenant_bids=8,
-                 alone="none")
+                 alone="engine_sampled", alone_sample=4)
 
 
 @dataclass
@@ -138,7 +149,11 @@ class FleetRunResult:
     retention: np.ndarray            # clip(perf / alone, 1.5)
     epoch_s: List[float]             # wall-clock per multi-run epoch
     stats: Dict[str, float]
-    engine_state: dict = field(default_factory=dict)  # final, on device
+    engine_state: dict = field(default_factory=dict)  # final multi-tenant
+    # engine state, on device
+    alone_s: float = 0.0             # wall seconds of the denominator
+    alone_waves: List[int] = field(default_factory=list)  # cascade waves
+    # of each engine-alone run (none when the denominator was cached)
 
     @property
     def mean_retention(self) -> float:
@@ -178,6 +193,15 @@ def _seed_floors(market, topo) -> None:
         market.set_floor(root, ON_DEMAND.get(rtype, 2.0) * 0.7)
 
 
+def _make_injector(fcfg: FleetScenarioConfig):
+    """A fresh injector per drive: consumption pointers are run-local,
+    so alone runs and reruns replay the identical schedule."""
+    if not fcfg.faults:
+        return None
+    from repro_torch.sim.faults import FaultInjector
+    return FaultInjector(fcfg.faults)
+
+
 def _drive_fleet_fused(fleet, params, market, fcfg: FleetScenarioConfig):
     """The multi-tenant fleet loop (``sim/epoch.py``).  Returns
     ``(fleet_state, epoch_s, bids_clipped)``."""
@@ -185,8 +209,42 @@ def _drive_fleet_fused(fleet, params, market, fcfg: FleetScenarioConfig):
     runner = EpochRunner(market, fleet)
     state = fleet.init_state(params)
     state, epoch_s, stats = runner.drive(params, state, fcfg.duration_s,
-                                         fcfg.tick_s)
+                                         fcfg.tick_s,
+                                         injector=_make_injector(fcfg))
     return state, epoch_s, stats["bids_clipped"]
+
+
+# The denominator is cloud-independent (the uncontended counterfactual),
+# so runs of every cloud at the same configuration share one
+# computation.  Keyed on the config repr and the device: a card run is
+# never handed a CPU result, nor a CPU run a card result.
+_ALONE_CACHE: Dict[tuple, np.ndarray] = {}
+
+
+def _alone_perf(fleet, params, market, topo, fcfg: FleetScenarioConfig,
+                waves: Optional[List[int]] = None) -> np.ndarray:
+    """Retention denominator — see ``FleetScenarioConfig.alone``.
+    ``waves``, when given, collects each engine-alone run's cascade
+    waves."""
+    n = fcfg.n_tenants
+    if fcfg.alone == "none":
+        return np.ones(n, np.float32)
+    key = (repr(fcfg), str(fleet.device))
+    cached = _ALONE_CACHE.get(key)
+    if cached is not None:
+        return cached.copy()
+    if fcfg.alone == "analytic":
+        out = _alone_analytic(fleet, params, fcfg)
+    elif fcfg.alone == "engine_sampled":
+        out = _alone_engine_sampled(fleet, params, market, topo, fcfg,
+                                    waves)
+    else:
+        out = np.ones(n, np.float32)
+        for i in range(n):
+            out[i] = _alone_engine_one(fleet, params, market, topo, fcfg,
+                                       i, waves)
+    _ALONE_CACHE[key] = out.copy()
+    return out
 
 
 def _alone_analytic(fleet, params, fcfg: FleetScenarioConfig
@@ -204,12 +262,51 @@ def _alone_analytic(fleet, params, fcfg: FleetScenarioConfig
     return fleet.performance(params, state, fcfg.duration_s).cpu().numpy()
 
 
+def _alone_engine_one(fleet, params, market, topo,
+                      fcfg: FleetScenarioConfig, i: int,
+                      waves: Optional[List[int]] = None) -> float:
+    """One tenant's alone performance through the real engine loop, on
+    a reset market (``params_alone`` keeps every shape)."""
+    from repro_torch.sim.fleet import params_alone
+    market.reset()
+    _seed_floors(market, topo)
+    p_i = params_alone(params, i)
+    state, _, _ = _drive_fleet_fused(fleet, p_i, market, fcfg)
+    if waves is not None:
+        waves.append(int(market.states["H100"]["waves"]))
+    return float(fleet.performance(p_i, state, fcfg.duration_s)[i])
+
+
+def _alone_engine_sampled(fleet, params, market, topo,
+                          fcfg: FleetScenarioConfig,
+                          waves: Optional[List[int]] = None) -> np.ndarray:
+    """Sampled engine-alone denominator for fleet scale: the engine
+    alone loop for an evenly spaced per-kind sample of tenants, and the
+    analytic counterfactual corrected by its kind's mean engine/analytic
+    ratio for every other tenant.  At ``alone_sample >= tenants per
+    kind`` this is ``alone="engine"``."""
+    analytic = _alone_analytic(fleet, params, fcfg)
+    kinds = params["kind"].cpu().numpy()
+    out = analytic.copy()
+    for kind in np.unique(kinds):
+        idx = np.nonzero(kinds == kind)[0]
+        k = min(max(fcfg.alone_sample, 1), len(idx))
+        sampled = idx[np.unique(np.linspace(0, len(idx) - 1, k)
+                                .round().astype(int))]
+        ratios = []
+        for i in sampled:
+            engine_i = _alone_engine_one(fleet, params, market, topo,
+                                         fcfg, int(i), waves)
+            ratios.append(engine_i / max(float(analytic[i]), 1e-9))
+            out[i] = engine_i
+        ratio = float(np.mean(ratios)) if ratios else 1.0
+        rest = np.setdiff1d(idx, sampled)
+        out[rest] = analytic[rest] * ratio
+    return out
+
+
 def _check_alone(mode: str) -> None:
-    if mode in ("engine", "engine_sampled"):
-        raise NotImplementedError(
-            f"alone={mode!r} (engine-driven alone runs) is not ported "
-            "yet; use 'analytic' or 'none'")
-    if mode not in ("none", "analytic"):
+    if mode not in ("none", "analytic", "engine", "engine_sampled"):
         raise ValueError(f"unknown alone mode {mode!r}")
 
 
@@ -225,12 +322,17 @@ def run_fleet_scenario(fcfg: FleetScenarioConfig,
                                                  fcfg)
     perf = fleet.performance(params, state,
                              fcfg.duration_s).cpu().numpy()
+    # take the multi-tenant stats and engine state before the alone
+    # runs: each engine-alone run resets the market
     stats = dict(market.stats)
     stats["bids_clipped"] = clipped
-    alone = _alone_analytic(fleet, params, fcfg) \
-        if fcfg.alone == "analytic" else np.ones(fcfg.n_tenants, np.float32)
+    engine_state = market.states["H100"]
+    waves: List[int] = []
+    t0 = time.perf_counter()
+    alone = _alone_perf(fleet, params, market, topo, fcfg, waves)
+    alone_s = time.perf_counter() - t0
     retention = np.minimum(1.5, perf / np.maximum(alone, 1e-9))
     return FleetRunResult(perf=perf, alone_perf=alone,
                           retention=retention, epoch_s=epoch_s,
-                          stats=stats,
-                          engine_state=market.states["H100"])
+                          stats=stats, engine_state=engine_state,
+                          alone_s=alone_s, alone_waves=waves)

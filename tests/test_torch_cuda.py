@@ -274,6 +274,68 @@ def test_fleet_slice_on_card_matches_cpu():
     assert gpu.stats == cpu.stats
 
 
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_health_masked_book_on_card():
+    """A 256-leaf book whose leaves are up, DOWN and DRAINING (a rack
+    down, a host draining, scattered leaves of both): the kernel's five
+    outputs equal the plain version's, before and after the health
+    mask."""
+    _need_cuda()
+    from repro_torch.sim.faults import FaultEvent, FaultInjector
+    eng, st = _book(build_tree(256), 8, 23, "cuda")
+    events = [FaultEvent(0.0, "fail", 2, 1), FaultEvent(0.0, "drain", 1, 0)]
+    rng = np.random.default_rng(4)
+    events += [FaultEvent(0.0, str(kind), 0, int(leaf)) for kind, leaf in
+               zip(rng.choice(["fail", "drain"], 40),
+                   rng.choice(256, 40, replace=False))]
+    st = FaultInjector(events).apply_health(eng, st, 0.0)
+    health = st["health"]
+    assert (health == R.HEALTH_DOWN).sum() > 32
+    assert (health == R.HEALTH_DRAINING).sum() > 8
+    aggs = _aggs(eng, st)
+    args = (tuple(st["floor"]), eng.level_off, eng.tree.strides,
+            st["owner"], st["limit"])
+    got = K.clear_cuda(*aggs, *args)
+    plain = R.clear_sorted_from_aggs(aggs, *args, eng.k)
+    torch.cuda.synchronize()
+    mask = (args[0], args[2], args[3], args[4])
+    for name, a, b in zip(NAMES, plain, got):
+        assert torch.equal(a, b), name
+    for name, a, b in zip(NAMES, R.apply_health_mask(health, *plain, *mask),
+                          R.apply_health_mask(health, *got, *mask)):
+        assert torch.equal(a, b), name
+    masked = ops.clear(st["order"], st["sorted_gseg"], st["seg_start"],
+                       st["price"], st["tenant"], st["seq"], args[0],
+                       eng.level_off, eng.tree.strides, st["owner"],
+                       st["limit"], eng.k, health=health)
+    down = health == R.HEALTH_DOWN
+    assert (masked[2][down] == -1).all()
+
+
+@pytest.mark.cuda
+def test_alone_engine_run_on_card_matches_cpu():
+    """One tenant's engine-alone run (``_alone_engine_one``) on the toy
+    fleet gives the same performance and cascade waves on the card
+    (kernel) as on the CPU (plain version)."""
+    _need_cuda()
+    from repro_torch.sim import simulator as TS
+    cfg = TS.FleetScenarioConfig(
+        regime="heavy", n_leaves=32, n_training=2, n_inference=2,
+        n_batch=1, duration_s=900.0, seed=1, b_max=32,
+        alone="engine_sampled", alone_sample=1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        topo, _, market, fleet, params = TS.make_fleet(cfg, dev)
+        waves = []
+        K.LAUNCHES = 0
+        perf = [TS._alone_engine_one(fleet, params, market, topo, cfg, i,
+                                     waves) for i in range(cfg.n_tenants)]
+        out[dev] = (perf, waves, K.LAUNCHES)
+    assert out["cuda"][:2] == out["cpu"][:2]
+    assert out["cuda"][2] == sum(out["cuda"][1]) > 0
+    assert out["cpu"][2] == 0
+
+
 # ------------------------------------------------ decode_attention, moe_route
 def test_model_kernel_wrappers_reject_cpu_tensors():
     """Both model kernels' wrappers refuse CPU tensors before building

@@ -292,11 +292,12 @@ def test_device_none_means_cuda():
         TS.run_fleet_scenario(TS.FleetScenarioConfig(**SMALL))
 
 
-def test_engine_alone_modes_not_ported():
-    for mode in ("engine", "engine_sampled"):
-        with pytest.raises(NotImplementedError):
-            TS.run_fleet_scenario(
-                TS.FleetScenarioConfig(alone=mode, **SMALL), device="cpu")
+def test_unknown_alone_mode_raises():
+    """Every ``alone`` mode of the reference is ported; any other name
+    is refused before the run starts."""
+    with pytest.raises(ValueError, match="unknown alone mode"):
+        TS.run_fleet_scenario(
+            TS.FleetScenarioConfig(alone="exact", **SMALL), device="cpu")
 
 
 def _port_files():
