@@ -15,7 +15,10 @@ Phases (one JSON line each):
    tensors at the shapes its main path gives it (market_clear
    ``torch.equal``; decode_attention within 2e-5 in float32 and 3e-2 in
    bfloat16; moe_route indices equal and weights within rtol 1e-5 /
-   atol 1e-6; ssd_scan's y within 3e-4 in float32 and 4e-2 in bfloat16,
+   atol 1e-6, its dense combine weights (float32 and bfloat16) equal
+   bit for bit to the scatter of its own weights and indices, and
+   within that weight tolerance (float32) or one bfloat16 step of the
+   plain version's; ssd_scan's y within 3e-4 in float32 and 4e-2 in bfloat16,
    its float32 final state within 3e-4, at the mamba2 serving shape, a
    partial last chunk, B 2 and a reference sweep shape), the whole
    fleet slice at a small size on the card against the same run on the
@@ -61,11 +64,12 @@ Phases (one JSON line each):
    over the rate for their type, whichever is larger; the SSD scan's at
    the bf16 tensor-core rate, with the figure at the float32 rate of the
    CUDA cores beside it as ``bound_ms_fp32_cores``), and
-   decode_attention's split plan.  Times are CUDA events over calls
-   captured in a CUDA graph (device time; the eager times, host enqueue
-   included, stand beside them as ``*_ms_eager``); market_clear's plain
-   version reads the device, so it cannot be captured and its time is
-   eager.
+   decode_attention's split plan; for moe_route also the logits product
+   and, after it, the router sequence and the library's
+   (``_route_timings``).  Times are CUDA events over calls captured in a
+   CUDA graph (device time; the eager times, host enqueue included,
+   stand beside them as ``*_ms_eager``); market_clear's plain version
+   reads the device, so it cannot be captured and its time is eager.
 
 Each phase's wall seconds and the total stand on the ``done`` line.
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -444,6 +448,53 @@ def phase_model_kernels_vs_plain(dev):
                 fail(f"moe_route differs from its plain version: T {T} "
                      f"renormalize {renorm}, indices equal {same_idx}, "
                      f"max err {err}")
+            for dt in (torch.float32, torch.bfloat16):
+                _check_route_dense(logits, 8, renorm, dt, f"T{T}_E64_k8_"
+                                   f"renorm{int(renorm)}_ties")
+
+
+def _bf16_steps(a, b) -> int:
+    """Largest distance, in bfloat16 steps, between two arrays of
+    bfloat16 values that are all >= +0."""
+    import torch
+    return int((a.view(torch.int16).int() - b.view(torch.int16).int())
+               .abs().max()) if a.numel() else 0
+
+
+def _check_route_dense(logits, k, renorm, dt, case):
+    """The router's dense combine weights: equal, bit for bit and with no
+    -0.0, to the scatter of the kernel's own w and idx in ``dt``; against
+    the plain version, the weight tolerance (rtol 1e-5 / atol 1e-6) in
+    float32, and in bfloat16 at most one bfloat16 step (relative 2^-7:
+    a weight one float32 ulp away may round to the neighbour)."""
+    import torch
+    from repro_torch.kernels.moe_route import kernel as RK
+    from repro_torch.kernels.moe_route import ref as RR
+    w, idx, dense = RK.route_cuda(logits, k, renorm, dt)
+    _, idx0, dense0 = RR.route_dense_ref(logits, k, renorm, dt)
+    own = torch.zeros(dense.shape, dtype=torch.float32, device=w.device)
+    own.scatter_(1, idx.long(), w)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(dense.view(torch.uint8),
+                             own.to(dt).view(torch.uint8))
+                 and not torch.signbit(dense.float()).any()
+                 and torch.equal(idx, idx0))
+    err = float((dense.float() - dense0.float()).abs().max())
+    if dt == torch.float32:
+        tol = {"rtol": 1e-5, "atol": 1e-6}
+        close = bool(torch.allclose(dense, dense0, **tol))
+    else:
+        tol = {"bf16_steps": 1}
+        close = _bf16_steps(dense, dense0) <= 1
+    emit({"phase": "kernel_vs_plain", "kernel": "moe_route",
+          "case": f"dense_{str(dt)[6:]}_{case}",
+          "dense_equals_own_scatter": exact, "max_abs_err": err,
+          "tolerance": tol, "ok": exact and close})
+    if not (exact and close):
+        fail(f"moe_route's dense weights ({dt}, {case}): equal to the "
+             f"scatter of its own w and idx {exact}, within {tol} of the "
+             f"plain version {close} (max err {err})")
+    return err
 
 
 def phase_ssd_vs_plain(dev):
@@ -1011,48 +1062,110 @@ def _decode_attention_entry(rep, launches):
             "bound_ms_full_S": full_ms}
 
 
-def _route_numbers(T, E, k, renorm, dev):
+def _route_inputs(T, D, E, dev):
+    """The router's inputs at T tokens of width D (seeded): bfloat16
+    activations, a float32 router, and the logits product of both."""
+    import torch
+    x = _randn((T, D), 21 + T, dev, torch.bfloat16)
+    router = _randn((D, E), 22, dev, torch.float32) * D ** -0.5
+    return x, router, x.to(torch.float32) @ router
+
+
+def _library_route(logits, k, renorm):
+    """The library's routing after the product, as ``moe_dense`` would
+    build it without the kernel: softmax -> topk -> renorm -> zeros ->
+    ``scatter_`` -> bfloat16 combine weights."""
+    import torch
+    w, idx = torch.topk(torch.softmax(logits, dim=-1), k)
+    if renorm:
+        w = w / w.sum(dim=-1, keepdim=True)
+    dense = torch.zeros(logits.shape, dtype=torch.float32,
+                        device=logits.device)
+    dense.scatter_(1, idx, w)
+    return dense.to(torch.bfloat16)
+
+
+def _route_timings(x, router, k, renorm):
+    """Graph and eager ms of the router (``kernel``, on fixed logits) and
+    of the sequence as ``moe_dense`` runs it: ``product`` (``x`` cast to
+    float32, times ``router``) alone, ``seq`` (the product, then one
+    router launch that also writes the bfloat16 combine weights) and
+    ``seq_library`` (the product, then ``_library_route``)."""
     import torch
     from repro_torch.kernels.moe_route import kernel as RK
+    bf16 = torch.bfloat16
+    logits = x.to(torch.float32) @ router
+
+    def product(i):
+        return x.to(torch.float32) @ router
+    fns = {"product": product,
+           "kernel": lambda i: RK.route_cuda(logits, k, renorm, bf16),
+           "seq": lambda i: RK.route_cuda(product(i), k, renorm, bf16),
+           "seq_library": lambda i: _library_route(product(i), k, renorm)}
+    reps = 500 if x.shape[0] < 64 else 200
+    out = {}
+    for name, fn in fns.items():
+        out[f"{name}_ms"] = _graph_ms(fn, reps)
+        out[f"{name}_ms_eager"] = _time_ms(fn, reps)
+    return out
+
+
+def _route_numbers(T, D, E, k, renorm, dev):
+    """The router at T tokens: its dense output held to the plain
+    version, its times and sequences (``_route_timings``), the plain
+    version's and ``topk(softmax)``'s times, and the bound of the fused
+    work: the logits read once (4TE bytes), w and idx (8Tk) and the
+    bfloat16 dense row (2TE) written once."""
+    import torch
     from repro_torch.kernels.moe_route import ref as RR
-    logits = _randn((T, E), 11 + T, dev, torch.float32)
-    w, idx = RK.route_cuda(logits, k, renorm)
-    w0, idx0 = RR.route_ref(logits, k, renorm)
-    torch.cuda.synchronize()
-    if not torch.equal(idx, idx0):
-        fail(f"moe_route indices differ from the plain version at T {T}")
+    x, router, logits = _route_inputs(T, D, E, dev)
+    err = _check_route_dense(logits, k, renorm, torch.bfloat16,
+                             f"main_path_T{T}")
+    times = _route_timings(x, router, k, renorm)
     reps = 500 if T < 64 else 200
-    nbytes = 4 * T * E + 8 * T * k       # logits in, weights + ids out
+    times.update({
+        "plain_ms": _graph_ms(lambda i: RR.route_dense_ref(
+            logits, k, renorm, torch.bfloat16), 50),
+        "plain_ms_eager": _time_ms(lambda i: RR.route_dense_ref(
+            logits, k, renorm, torch.bfloat16), 50),
+        "library_ms": _graph_ms(
+            lambda i: torch.topk(torch.softmax(logits, dim=-1), k), reps),
+        "library_ms_eager": _time_ms(
+            lambda i: torch.topk(torch.softmax(logits, dim=-1), k), reps)})
+    nbytes = 4 * T * E + 8 * T * k + 2 * T * E
     ops = 5 * T * E + 2 * k * T * E      # softmax, then k max-and-mask
     bound_ms, bound_by = _bound(nbytes, ops, FP32_OPS_PER_S)
-    times = _timings(
-        lambda i: RK.route_cuda(logits, k, renorm),
-        lambda i: RR.route_ref(logits, k, renorm),
-        lambda i: torch.topk(torch.softmax(logits, dim=-1), k), reps, 50)
-    return {"max_abs_err": float((w - w0).abs().max()), **times,
-            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-            "operations": ops, "T": T}
+    return {"max_abs_err": err, **times, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "operations": ops}
 
 
 def _moe_route_entry(rep, launches, dev):
     """At the serving main path's shapes: a decode step's 4 tokens (most
-    of the launches) and, beside it, a prefill's 1,024."""
+    of the launches) and, beside it, a prefill's 1,024; logits from
+    D 2,048 bfloat16 activations, dense weights in bfloat16."""
     cfg = rep.cfg
     E, k, renorm = cfg.num_experts, cfg.num_experts_per_tok, \
         cfg.moe_renormalize
-    dec = _route_numbers(SERVE_FULL["slots"], E, k, renorm, dev)
-    pre = _route_numbers(SERVE_FULL["prompt_len"], E, k, renorm, dev)
+    dec = _route_numbers(SERVE_FULL["slots"], cfg.d_model, E, k, renorm,
+                         dev)
+    pre = _route_numbers(SERVE_FULL["prompt_len"], cfg.d_model, E, k,
+                         renorm, dev)
+    seq_keys = [key for key in dec if key.startswith(("product", "seq"))]
     return {"name": "moe_route", "route": "cuda",
             "source": "src/repro_torch/csrc/moe_route.cu",
             "replaces": "src/repro/kernels/moe_route/kernel.py:59",
             "launches": launches["moe_route"],
             "max_abs_err": max(dec["max_abs_err"], pre["max_abs_err"]),
+            "ms": dec["kernel_ms"], "ms_eager": dec["kernel_ms_eager"],
             **{key: dec[key] for key in (
-                "ms", "plain_ms", "library_ms", "ms_eager", "plain_ms_eager",
+                "plain_ms", "library_ms", "plain_ms_eager",
                 "library_ms_eager", "bound_ms", "bound_by")},
             "library": "torch.topk(torch.softmax(logits, -1), k)",
-            "shapes": {"T": dec["T"], "E": E, "k": k,
-                       "renormalize": renorm, "dtype": "torch.float32"},
+            "sequence": {key: dec[key] for key in seq_keys},
+            "shapes": {"T": SERVE_FULL["slots"], "E": E, "k": k,
+                       "D": cfg.d_model, "renormalize": renorm,
+                       "logits": "torch.float32",
+                       "dense": "torch.bfloat16"},
             "bytes": dec["bytes"], "operations": dec["operations"],
             "prefill": pre}
 

@@ -29,3 +29,15 @@ def route_ref(logits: torch.Tensor, k: int, renormalize: bool = True):
     if renormalize:
         w = w / w.sum(dim=-1, keepdim=True)
     return w, torch.stack(ids, dim=-1).to(torch.int32)
+
+
+def route_dense_ref(logits: torch.Tensor, k: int, renormalize: bool,
+                    dtype: torch.dtype):
+    """``route_ref``, then the dense combine weights as the reference's
+    ``moe_dense`` builds them (``zeros`` -> ``scatter_`` -> ``.to``):
+    -> (weights (T, k) float32, idx (T, k) int32, dense (T, E) dtype)."""
+    w, idx = route_ref(logits, k, renormalize)
+    dense = torch.zeros(logits.shape, dtype=torch.float32,
+                        device=logits.device)
+    dense.scatter_(1, idx.long(), w)
+    return w, idx, dense.to(dtype)

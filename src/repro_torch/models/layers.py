@@ -4,7 +4,8 @@ layers the serving paths of ``olmoe-1b-7b`` and ``mamba2-780m`` run.
 Functions keep the reference's names, arguments and layouts.  Three of
 them reach the port's kernels: ``attention_decode`` calls
 ``kernels.decode_attention.ops.decode_attention`` for its attention
-core, ``_router_topk`` calls ``kernels.moe_route.ops.route`` and
+core, ``moe_dense`` takes its top-k and its dense combine weights from
+``kernels.moe_route.ops.route_dense`` (one launch) and
 ``ssd_block`` calls ``kernels.ssd_scan.ops.ssd_scan`` (the CUDA kernels
 on CUDA tensors, their plain versions on CPU tensors).  Prefill
 attention, the projections, the causal conv and the one-token SSM
@@ -146,12 +147,6 @@ def attention_decode(p: Dict[str, torch.Tensor], cfg: ArchConfig,
 # --------------------------------------------------------------------------
 # Mixture-of-Experts
 # --------------------------------------------------------------------------
-def _router_topk(logits: torch.Tensor, k: int, renormalize: bool):
-    """logits (T, E) -> (weights (T, k) float32, indices (T, k) int32),
-    through the router kernel."""
-    return route_ops.route(logits, k, renormalize)
-
-
 def _experts(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(T, D) times every expert's (E, D, F) -> (E, T, F): one batched
     product, with no copy of the expert weights."""
@@ -164,17 +159,18 @@ def moe_dense(p: Dict[str, torch.Tensor], cfg: ArchConfig,
     the top k by their router weights (what the reference's server
     runs)."""
     B, S, D = x.shape
-    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    k = cfg.num_experts_per_tok
     xf = x.reshape(B * S, D)
     router = p["router"]
     logits = xf.to(router.dtype) @ router        # JAX: bf16 @ f32 -> f32
-    w, idx = _router_topk(logits, k, cfg.moe_renormalize)
-    dense_w = torch.zeros((B * S, E), dtype=torch.float32, device=x.device)
-    dense_w.scatter_(1, idx.long(), w)
+    # the router writes the dense combine weights (T, E) in x's dtype,
+    # the reference's dense_w.at[...].set(w).astype(x.dtype)
+    _, _, dense_w = route_ops.route_dense(logits, k, cfg.moe_renormalize,
+                                          x.dtype)
     g = _experts(xf, p["wg"])                    # (E, T, F)
     u = _experts(xf, p["wu"])
     y = torch.bmm(F.silu(g) * u, p["wd"])        # (E, T, D)
-    out = torch.einsum("te,etd->td", dense_w.to(x.dtype), y)
+    out = torch.einsum("te,etd->td", dense_w, y)
     return out.reshape(B, S, D)
 
 

@@ -348,6 +348,8 @@ def test_model_kernel_wrappers_reject_cpu_tensors():
         DK.decode_attention_cuda(q, kv, kv, 3)
     with pytest.raises(ValueError, match="CUDA"):
         RK.route_cuda(torch.zeros(4, 8), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        RK.route_cuda(torch.zeros(4, 8), 2, True, torch.bfloat16)
 
 
 @pytest.mark.parametrize("S,pos,window,want", [
@@ -428,6 +430,169 @@ def test_moe_route_kernel_matches_plain_on_card(T, E, k, renorm):
     assert RK.LAUNCHES == before + 1
     assert torch.equal(idx, idx0)
     torch.testing.assert_close(w, w0, rtol=1e-5, atol=1e-6)
+
+
+ROUTE_DENSE_EK = ((8, 1), (8, 8), (60, 1), (60, 8), (64, 1), (64, 8),
+                  (64, 64), (512, 1), (512, 8), (512, 64))
+
+
+def _tied_logits(T, E, seed, dev="cuda"):
+    """Random logits: every third token's experts tied in pairs, every
+    fifth token's all equal (the tie straddles the k-th place), and
+    every seventh token's probabilities +0 but one (underflow)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((T, E)).astype(np.float32)
+    x[::3] = np.repeat(x[::3, : (E + 1) // 2], 2, axis=1)[:, :E]
+    x[1::5] = 0.5
+    x[2::7, E // 2] = 150.0
+    return torch.from_numpy(x).to(dev)
+
+
+def _poison_pool(shape, dtype):
+    """Leave a freed block of NaN bits in the caching allocator, so the
+    next ``torch.empty`` of this size finds garbage, not zeros."""
+    junk = torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+    del junk
+
+
+def _bf16_steps(a, b):
+    """Largest distance, in bfloat16 steps, between two arrays of
+    bfloat16 values that are all >= +0."""
+    return int((a.view(torch.int16).int() - b.view(torch.int16).int())
+               .abs().max()) if a.numel() else 0
+
+
+def _check_route_dense(logits, k, renorm, dt, got):
+    """The kernel's dense row equals the scatter of its own w and idx bit
+    for bit, with no -0.0; its w and idx equal the plain version's
+    (indices exact, weights rtol 1e-5 / atol 1e-6); its dense row
+    equals the plain version's within the weight tolerance (float32) or
+    one bfloat16 step (a weight one float32 ulp away may round to the
+    neighbouring bfloat16 value)."""
+    from repro_torch.kernels.moe_route import ref as RR
+    w, idx, dense = got
+    w0, idx0, dense0 = RR.route_dense_ref(logits, k, renorm, dt)
+    own = torch.zeros(dense.shape, dtype=torch.float32, device=w.device)
+    own.scatter_(1, idx.long(), w)
+    torch.cuda.synchronize()
+    assert dense.dtype == dt and dense.shape == logits.shape
+    assert torch.equal(idx, idx0)
+    torch.testing.assert_close(w, w0, rtol=1e-5, atol=1e-6)
+    assert torch.equal(dense.view(torch.uint8),
+                       own.to(dt).view(torch.uint8))
+    assert not torch.signbit(dense.float()).any()
+    if dt == torch.float32:
+        torch.testing.assert_close(dense, dense0, rtol=1e-5, atol=1e-6)
+    else:
+        assert _bf16_steps(dense, dense0) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("renorm", [False, True])
+@pytest.mark.parametrize("E,k", ROUTE_DENSE_EK)
+@pytest.mark.parametrize("T", [0, 1, 4, 1024, 4097])
+def test_moe_route_dense_matches_scatter_on_card(T, E, k, renorm, dtype):
+    """One launch writes w, idx and the dense combine weights (E 60 and
+    512: lanes past E; T 0: no launch)."""
+    _need_cuda()
+    from repro_torch.kernels.moe_route import kernel as RK
+    dt = getattr(torch, dtype)
+    logits = _tied_logits(T, E, T + 7 * E + k)
+    _poison_pool((T, E), dt)
+    before = RK.LAUNCHES
+    got = RK.route_cuda(logits, k, renorm, dt)
+    assert RK.LAUNCHES == before + (1 if T else 0)
+    _check_route_dense(logits, k, renorm, dt, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [4, 1024])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_route_dense_in_cuda_graph_on_card(dtype, T):
+    """The captured sequences product -> router with dense weights (a
+    kernel node before it) and copy -> router (a memcpy node before it)
+    give what eager calls give on the same logits, on two inputs
+    replayed through one graph."""
+    _need_cuda()
+    from repro_torch.kernels.moe_route import kernel as RK
+    from repro_torch.kernels.moe_route import ops as RO
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(T)
+    x = torch.randn((T, 2048), generator=gen, device="cuda").to(dt)
+    router = torch.randn((2048, 64), generator=gen, device="cuda") * 0.05
+    src = torch.empty((T, 64), device="cuda")
+
+    def product():
+        logits = x.to(torch.float32) @ router
+        return logits, RK.route_cuda(logits, 8, False, dt)
+
+    def copied():
+        logits = torch.empty_like(src)
+        logits.copy_(src)
+        return logits, RK.route_cuda(logits, 8, True, dt)
+    for seq in (product, copied):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            seq()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            logits, out = seq()
+        renorm = seq is copied
+        for seed in (1, 2):
+            x.copy_(torch.randn(x.shape, generator=gen, device="cuda"))
+            src.copy_(_tied_logits(T, 64, seed))
+            graph.replay()
+            torch.cuda.synchronize()
+            eager_logits = (x.to(torch.float32) @ router if seq is product
+                            else src)
+            torch.testing.assert_close(logits, eager_logits)
+            want = RO.route_dense(logits, 8, renorm, dt)
+            torch.cuda.synchronize()
+            for a, b in zip(out, want):
+                assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+            _check_route_dense(logits, 8, renorm, dt, tuple(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_dense_one_router_launch_on_card(dtype):
+    """``moe_dense`` on the card launches the router once a call and no
+    zeros / scatter / cast for its combine weights, and matches the same
+    layer on the CPU (1e-4 float32, as the reduced servers' logits;
+    3e-2 bfloat16, the serving tests' bfloat16 tolerance)."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_route import kernel as RK
+    from repro_torch.models import layers as TL
+    from repro_torch.models import model as TM
+    cfg = get_config("olmoe-1b-7b").reduced()
+    dt = getattr(torch, dtype)
+    tp = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    moe = {k: (v if k == "router" else v.to(dt))
+           for k, v in TM._slice(tp["blocks"][0], 0)["moe"].items()}
+    moe_gpu = {k: v.cuda() for k, v in moe.items()}
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 7, cfg.d_model)).astype(np.float32)).to(dt)
+    TL.moe_dense(moe_gpu, cfg, x.cuda())          # build, warm up
+    torch.cuda.synchronize()
+    before = RK.LAUNCHES
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = TL.moe_dense(moe_gpu, cfg, x.cuda())
+        torch.cuda.synchronize()
+    assert RK.LAUNCHES == before + 1
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    routed = [n for n in names if "route_kernel" in n]
+    assert len(routed) == 1, names
+    assert not [n for n in names if "scatter" in n.lower()], names
+    tol = 3e-2 if dtype == "bfloat16" else 1e-4
+    torch.testing.assert_close(out.cpu().float(),
+                               TL.moe_dense(moe, cfg, x).float(),
+                               rtol=tol, atol=tol)
 
 
 # ------------------------------------------------------------------ ssd_scan

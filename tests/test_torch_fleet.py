@@ -3,8 +3,8 @@ reference ``repro.sim``: the fleet functions elementwise, the whole
 slice (``run_fleet_scenario``) at a small size, a run carried across
 from the reference mid-way, device resolution, and the import rule
 (the port and the root scripts ``chip_smoke.py``, ``profile_epoch.py``,
-``profile_serve.py`` and ``profile_clear.py`` import neither ``jax`` nor
-``repro``).
+``profile_serve.py``, ``profile_clear.py`` and ``profile_route.py``
+import neither ``jax`` nor ``repro``).
 
 JAX compiles are the cost here, so the reference run and its jitted
 epoch are built once per module and shared.
@@ -303,13 +303,15 @@ def test_unknown_alone_mode_raises():
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "profile_epoch.py",
-              ROOT / "profile_serve.py", ROOT / "profile_clear.py"]
+              ROOT / "profile_serve.py", ROOT / "profile_clear.py",
+              ROOT / "profile_route.py"]
     return files
 
 
 def test_port_imports_neither_jax_nor_repro():
     """Every module of the port, chip_smoke.py and the profilers
-    (profile_epoch.py, profile_serve.py, profile_clear.py) import no
+    (profile_epoch.py, profile_serve.py, profile_clear.py,
+    profile_route.py) import no
     ``jax`` (or ``jaxlib``) and nothing of the ``repro`` package."""
     banned = {"jax", "jaxlib", "repro"}
     bad = []

@@ -215,6 +215,31 @@ def test_moe_dense(cfgs, params, dtype):
     _close(tout, jout, 3e-2 if dtype == "bfloat16" else 2e-5)
 
 
+def test_moe_dense_takes_combine_weights_from_router(cfgs, params,
+                                                     monkeypatch):
+    """``moe_dense`` asks the router once for its dense combine weights
+    in x's dtype (one launch on the card), for every token at once."""
+    from repro_torch.kernels.moe_route import ops as route_ops
+    _, tcfg = cfgs
+    _, tl = _layer0(*params)
+    calls = []
+    real = route_ops.route_dense
+
+    def spy(logits, k, renormalize, dtype):
+        calls.append((tuple(logits.shape), k, renormalize, dtype))
+        return real(logits, k, renormalize, dtype)
+    monkeypatch.setattr(route_ops, "route_dense", spy)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 3, 64)).astype(np.float32))
+    for dt in (torch.float32, torch.bfloat16):
+        tm = {k: (v if k == "router" else v.to(dt))
+              for k, v in tl["moe"].items()}
+        assert TL.moe_dense(tm, tcfg, x.to(dt)).dtype == dt
+    k = tcfg.num_experts_per_tok
+    assert calls == [((6, tcfg.num_experts), k, tcfg.moe_renormalize, dt)
+                     for dt in (torch.float32, torch.bfloat16)]
+
+
 # ------------------------------------------------------------------ model
 @pytest.fixture(scope="module")
 def prefilled(cfgs, params):
