@@ -47,6 +47,27 @@ Phases (one JSON line each):
    calibrated fleet and are printed beside, not held); then the kernel
    against its plain version on the storm's final book, under its own
    health and under the storm's mid-run health with two racks draining;
+3d. ``recovery``: ``benchmarks/fig_faults.py``'s recovery row on the
+   card — the same storm through ``CrashSafeRunner`` (a snapshot every 5
+   epochs, a WAL record every epoch) killed at the final epoch's
+   post_step, then one cold and three warm ``resume``s from pristine
+   copies of its workdir, each replaying 5 epochs and equal to 3c's
+   storm run (owners, rates, bills, health, performance, stats), the
+   clearing kernel once per wave; then the 64-leaf chaos sweep of
+   ``tests/test_recovery.py`` (a kill at each of the five phases and at
+   epoch 0, each resumed) equal to the uninterrupted card run and to the
+   same run on the CPU;
+3e. ``event_path``: ``run_with_retention("laissez_batch")`` on the card
+   (every facade call one engine step) at ``PARITY_CFG`` for the three
+   regimes, each mean retention equal to the committed
+   ``fig06/parity/*/laissez_batch`` row and to the event ``Market``'s
+   run (batch minus event +0.000), the kernel at least once per step,
+   with each call's time split into the engine step (ended by a
+   synchronise), the packed host copy and the rest;
+   a ``tests/test_differential.py`` trace on the card's facade and on
+   the CPU's, equal after every event; ``clear`` / ``clear_topk`` on
+   the card equal to the CPU on the trace's final book and on 3c's
+   10k storm book;
 4. the serving main paths: ``repro_torch.launch.serve.serve`` on
    ``olmoe-1b-7b`` and then on ``mamba2-780m``, each at full width
    (bfloat16, random weights from ``torch.Generator`` seed 0), 8
@@ -79,6 +100,7 @@ without TF32 (both ``allow_tf32`` switches off).
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import pathlib
@@ -782,10 +804,12 @@ def phase_faults(dev):
                                 240.0, racks_per_burst=2, seed=7)
              + zone_supply_shock(dur * 0.3, dur * 0.7, zone=0))
     res = cfg = None
+    epoch_ms = {}
     for tag, faults in (("nofault", None), ("storm", storm)):
         cfg = FleetScenarioConfig(**FAULTS_10K, faults=faults)
         res, wall, launches = _fleet_run(
             dev, lambda: run_fleet_scenario(cfg, device=dev))
+        epoch_ms[tag] = _epoch_ms(res)
         waves = int(res.engine_state["waves"])
         got = {"revoked_by_fault": res.stats["revoked_by_fault"],
                "epochs": len(res.epoch_s)}
@@ -796,7 +820,7 @@ def phase_faults(dev):
               "orders": res.stats["orders"],
               "committed": COMMITTED_FAULTS[tag],
               "committed_stale": STALE_FAULT_ROWS[tag], "waves": waves,
-              "launches": launches, **_epoch_ms(res), "wall_s": wall})
+              "launches": launches, **epoch_ms[tag], "wall_s": wall})
         _check_clear_launches(f"the {tag} run", launches, waves)
         if got != COMMITTED_FAULTS[tag]:
             fail(f"the {tag} run at n={n} gave {got}; committed "
@@ -833,6 +857,397 @@ def phase_faults(dev):
         if not all(equal.values()):
             fail(f"market_clear differs from its plain version on the "
                  f"storm's final book ({case}): {equal}")
+    return res, storm, epoch_ms["nofault"]["epoch_ms_p50"]
+
+
+# ------------------------------------------------------------ phase 3d
+# tests/test_recovery.py's chaos configuration (_fcfg at 64 leaves)
+CHAOS_FLEET = dict(regime="heavy", n_leaves=64, n_training=3,
+                   n_inference=3, n_batch=2, duration_s=600.0, tick_s=60.0,
+                   seed=3, k=4, b_max=64, per_tenant_bids=4, alone="none")
+SNAPSHOT_EVERY = 5               # benchmarks/fig_faults.py
+RECOVERY_REPEATS = 3             # warm resumes after the cold one
+
+
+def _run_fingerprint(market, fleet, params, fs, stats, dur):
+    """What a recovered run must reproduce: the engine's owners, rates,
+    bills and health, the fleet's performance and the run's stats."""
+    from repro_torch.convert import to_numpy
+    est = to_numpy(market.states["H100"])
+    return ({k: est[k] for k in ("owner", "rate", "bills", "health")},
+            fleet.performance(params, fs, dur).cpu().numpy(),
+            {k: int(stats[k]) for k in stats})
+
+
+def _fingerprint_diff(a, b):
+    """Names of the parts where two run fingerprints differ."""
+    import numpy as np
+    diff = [k for k in a[0] if not np.array_equal(a[0][k], b[0][k])]
+    if not np.array_equal(a[1], b[1]):
+        diff.append("performance")
+    if a[2] != b[2]:
+        diff.append("stats")
+    return diff
+
+
+def _durable_fleet(cfg, dev, workdir, events, snapshot_every=1):
+    """A fresh process of the durable fleet run: market, fleet and
+    params rebuilt from ``cfg`` on ``dev``, a runner over ``workdir``."""
+    from repro_torch.sim.faults import FaultInjector
+    from repro_torch.sim.recovery import CrashSafeRunner
+    from repro_torch.sim.simulator import _seed_floors, make_fleet
+    topo, _, market, fleet, params = make_fleet(cfg, dev)
+    _seed_floors(market, topo)
+    runner = CrashSafeRunner(market, fleet, "H100", str(workdir),
+                             snapshot_every=snapshot_every,
+                             injector=FaultInjector(events))
+    return runner, market, fleet, params
+
+
+def _recovery_10k(dev, storm_res, storm, epoch_ms_p50, root):
+    """``benchmarks/fig_faults.py`` ``_recovery_row`` on the card: the
+    durable storm run killed at the final epoch's post_step, then one
+    cold and three warm resumes from pristine copies of its workdir,
+    each held to phase ``faults``' storm run."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.sim.epoch import STAT_KEYS
+    from repro_torch.sim.faults import FaultEvent, FaultInjector
+    from repro_torch.sim.recovery import CrashSafeRunner, SimulatedCrash, \
+        _ticks
+    from repro_torch.sim.simulator import FleetScenarioConfig
+    cfg = FleetScenarioConfig(**FAULTS_10K)
+    dur, tick = cfg.duration_s, cfg.tick_s
+    ticks = _ticks(dur, tick)
+    last = len(ticks) - 1
+    replay = last % SNAPSHOT_EVERY or SNAPSHOT_EVERY
+    pristine = root / "pristine"
+    est = storm_res.engine_state
+    want = ({k: est[k].cpu().numpy()
+             for k in ("owner", "rate", "bills", "health")},
+            storm_res.perf,
+            {k: int(storm_res.stats[k]) for k in STAT_KEYS})
+    kill = [FaultEvent(ticks[-1], "crash", phase="post_step")]
+    _reset_launches()
+    t0 = time.perf_counter()
+    runner, market, fleet, params = _durable_fleet(
+        cfg, dev, pristine, storm + kill, SNAPSHOT_EVERY)
+    try:
+        runner.run(params, dur, tick)
+        fail("the scheduled crash of the durable 10k run did not fire")
+    except SimulatedCrash:
+        pass
+    torch.cuda.synchronize()
+    durable_s = time.perf_counter() - t0
+    durable_launches = _read_launches()
+    storm_waves = int(est["waves"])
+    snaps = runner.ckpt.all_steps()
+    snap = snaps[-1]
+    snap_path = runner.ckpt._path(snap)
+    with np.load(snap_path) as z:
+        snap_waves = int(z["['eng']['waves']"])
+    wal_bytes = (pristine / "bids.wal").stat().st_size
+    times, checks = [], []
+    for i in range(RECOVERY_REPEATS + 1):
+        rep = root / f"rep{i}"
+        shutil.copytree(pristine, rep)
+        r2 = CrashSafeRunner(market, fleet, "H100", str(rep),
+                             snapshot_every=SNAPSHOT_EVERY,
+                             injector=FaultInjector(storm))
+        _reset_launches()
+        t1 = time.perf_counter()
+        fs, stats = r2.resume(params, dur, tick)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        launches = _read_launches()
+        got = _run_fingerprint(market, fleet, params, fs, stats, dur)
+        waves = int(market.states["H100"]["waves"])
+        checks.append({"diff": _fingerprint_diff(got, want),
+                       "launches": launches,
+                       "waves_replayed": waves - snap_waves,
+                       "final_waves": waves})
+        shutil.rmtree(rep, ignore_errors=True)
+    # the snapshot's save: a blocking save of the resumed final state
+    state = {"eng": r2._canon(market.states["H100"]), "fleet": fs,
+             "stats": {k: torch.tensor(v, dtype=torch.int32, device=dev)
+                       for k, v in stats.items()}}
+    scratch = CheckpointManager(str(root / "save"), keep=1)
+    save_ms = []
+    for step in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        scratch.save(step, state)
+        save_ms.append((time.perf_counter() - t1) * 1e3)
+    cold, warm = times[0], times[1:]
+    p50 = float(np.median(warm))
+    emit({"phase": "recovery", "case": "fig_faults_10k", "n": cfg.n_leaves,
+          "snapshot_every": SNAPSHOT_EVERY, "snapshots": snaps,
+          "replay_epochs": replay, "recovery_s_cold": cold,
+          "recovery_s_p50": p50, "recovery_s_all": times,
+          "nofault_epoch_ms_p50": epoch_ms_p50,
+          "recovery_x_epoch_p50": p50 * 1e3 / epoch_ms_p50,
+          "snapshot_bytes": snap_path.stat().st_size,
+          "save_ms": save_ms, "wal_bytes": wal_bytes,
+          "wal_bytes_per_epoch": wal_bytes / len(ticks),
+          "durable_s": durable_s, "durable_launches": durable_launches,
+          "storm_waves": storm_waves, "resumes": checks})
+    if durable_launches["market_clear"] != storm_waves or \
+            any(v for k, v in durable_launches.items()
+                if k != "market_clear"):
+        fail(f"the durable run launched {durable_launches}; the storm run "
+             f"cleared {storm_waves} waves")
+    for i, c in enumerate(checks):
+        if c["diff"]:
+            fail(f"resume {i} of the killed 10k run differs from the storm "
+                 f"run in {c['diff']}")
+        _check_clear_launches(f"resume {i}", c["launches"],
+                              c["waves_replayed"])
+        if c["final_waves"] != storm_waves or c["waves_replayed"] <= 0:
+            fail(f"resume {i} ended at {c['final_waves']} waves; the storm "
+                 f"run at {storm_waves}")
+
+
+def _chaos_sweep(dev, root):
+    """At the 64-leaf chaos configuration, kill at each of the five
+    phases of a random epoch and at epoch 0, then resume; each result
+    must equal the uninterrupted card run and the same run on the
+    CPU."""
+    import numpy as np
+    from repro_torch.market_torch.engine import build_tree
+    from repro_torch.sim.faults import FaultEvent, rack_failure_storm, \
+        zone_supply_shock
+    from repro_torch.sim.recovery import PHASES, SimulatedCrash, _ticks
+    from repro_torch.sim.simulator import FleetScenarioConfig
+    cfg = FleetScenarioConfig(**CHAOS_FLEET)
+    dur, tick = cfg.duration_s, cfg.tick_s
+    events = (rack_failure_storm(build_tree(64), 120.0, 400.0, 180.0,
+                                 150.0, seed=9)
+              + zone_supply_shock(240.0, 420.0, zone=0))
+    base = {}
+    for d in (dev, "cpu"):
+        runner, market, fleet, params = _durable_fleet(
+            cfg, d, root / f"base_{d}", events)
+        fs, stats = runner.run(params, dur, tick)
+        base[str(d)] = _run_fingerprint(market, fleet, params, fs, stats,
+                                        dur)
+    card, cpu = base[str(dev)], base["cpu"]
+    ticks = _ticks(dur, tick)
+    rng = np.random.default_rng(17)        # tests/test_recovery.py's
+    kills = [(ticks[int(rng.integers(1, len(ticks)))], ph) for ph in PHASES]
+    kills.append((0.0, "post_wal"))
+    out = []
+    for i, (kill_t, phase) in enumerate(kills):
+        wd = root / f"kill{i}"
+        runner, _, _, params = _durable_fleet(
+            cfg, dev, wd, events + [FaultEvent(kill_t, "crash",
+                                               phase=phase)])
+        try:
+            runner.run(params, dur, tick)
+            fail(f"the chaos kill at {kill_t}/{phase} did not fire")
+        except SimulatedCrash:
+            pass
+        runner, market, fleet, params = _durable_fleet(cfg, dev, wd, events)
+        fs, stats = runner.resume(params, dur, tick)
+        got = _run_fingerprint(market, fleet, params, fs, stats, dur)
+        out.append({"kill_t": kill_t, "phase": phase,
+                    "vs_card": _fingerprint_diff(got, card),
+                    "vs_cpu": _fingerprint_diff(got, cpu)})
+    card_vs_cpu = _fingerprint_diff(card, cpu)
+    emit({"phase": "recovery", "case": "chaos_64", "kills": out,
+          "card_vs_cpu": card_vs_cpu, "stats": card[2]})
+    if card_vs_cpu or any(k["vs_card"] or k["vs_cpu"] for k in out):
+        fail(f"the chaos sweep differs: card vs CPU {card_vs_cpu}, "
+             f"kills {out}")
+
+
+def phase_recovery(dev, storm_res, storm, epoch_ms_p50):
+    """Crash-safe recovery on the card: the 10k storm run killed and
+    resumed (held to phase ``faults``' storm run), then the 64-leaf
+    chaos sweep (held to the uninterrupted card and CPU runs).  The
+    durable files live in a scratch folder under ``OUT``, removed at
+    the end."""
+    import shutil
+    root = OUT / "recovery_work"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        _recovery_10k(dev, storm_res, storm, epoch_ms_p50, root / "10k")
+        _chaos_sweep(dev, root / "chaos")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ------------------------------------------------------------ phase 3e
+# benchmarks/fig06_contention.py PARITY_CFG (seed 1) and its committed
+# fig06/parity/{regime}/laissez_batch rows (mean retention)
+PARITY_CFG = dict(duration_s=1800.0, tick_s=90.0, n_training=1,
+                  n_inference=1, n_batch=0, n_h100=4, n_a100=4, seed=1)
+COMMITTED_PARITY = {"right_sized": "0.563", "slight": "0.657",
+                    "heavy": "0.574"}
+
+
+@contextlib.contextmanager
+def _facade_counts():
+    """Count, while open, the facade's Market-API calls (``events``)
+    and the engine steps behind them (``steps``), and time the steps
+    (``step_s``, each ending in a synchronise) and the host copies after
+    them (``pull_s``), by wrapping the facade's and the engine's
+    methods."""
+    import torch
+    from repro_torch.market_torch.bridge import BatchMarket
+    from repro_torch.market_torch.engine import BatchEngine
+    counts = {"events": 0, "steps": 0, "step_s": 0.0, "pull_s": 0.0}
+    events = ("place_order", "cancel_order", "relinquish",
+              "set_retention_limit", "set_floor", "advance_to")
+    saved = {(cls, name): getattr(cls, name) for cls, name in
+             [(BatchMarket, e) for e in events]
+             + [(BatchMarket, "_step"), (BatchMarket, "_pull"),
+                (BatchEngine, "step")]}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            if name in events:
+                counts["events"] += 1
+            if name == "_step":
+                counts["steps"] += 1
+            if name not in ("step", "_pull"):
+                return fn(*args, **kwargs)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if name == "step":
+                torch.cuda.synchronize()
+            counts["step_s" if name == "step" else "pull_s"] += \
+                time.perf_counter() - t0
+            return out
+        return wrapper
+    try:
+        for (cls, name), fn in saved.items():
+            setattr(cls, name, counted(name, fn))
+        yield counts
+    finally:
+        for (cls, name), fn in saved.items():
+            setattr(cls, name, fn)
+
+
+def _facade_replay(topo, events, dev):
+    """The trace on a facade on ``dev``: after every event its owners,
+    rates, settle bills, stats and the callbacks fired."""
+    from repro_torch.market_torch.bridge import BatchMarket
+    from repro_torch.sim.traces import apply_event
+    bm = BatchMarket(topo, capacity=1 << 10, n_tenants=16, device=dev)
+    calls = []
+    bm.on_transfer.append(lambda *a: calls.append(a))
+    leaves = [leaf for root in topo.roots.values()
+              for leaf in topo.leaves_of(root)]
+    out = []
+    for e in events:
+        apply_event(bm, e)
+        out.append(([bm.owner_of(leaf) for leaf in leaves],
+                    [bm.market_rate(leaf) for leaf in leaves], bm.settle(),
+                    dict(bm.stats), list(calls)))
+        calls.clear()
+    return out, bm
+
+
+def _clear_card_vs_cpu(eng, st, cpu_eng):
+    """``clear`` and ``clear_topk`` of one state on the card and on the
+    CPU: the names of the outputs that differ."""
+    import torch
+    from repro_torch.convert import to_numpy, to_torch
+    cst = to_torch(to_numpy(st), "cpu")
+    got = eng.clear(st) + eng.clear_topk(st)
+    want = cpu_eng.clear(cst) + cpu_eng.clear_topk(cst)
+    names = ("rate", "best_level", "winner", "topk_rate", "topk_level",
+             "cands", "truncated")
+    return [n for n, g, w in zip(names, got, want)
+            if g.dtype != w.dtype or not torch.equal(g.cpu(), w)]
+
+
+def phase_event_path(dev, storm_res):
+    """The event-driven market path on the card: Fig 6's parity rows
+    (``run_with_retention`` of ``laissez_batch``, every call one engine
+    step behind the facade) held to the committed rows and to the event
+    market, a differential trace on the card's and the CPU's facades,
+    and ``clear`` / ``clear_topk`` on the card against the CPU."""
+    import torch
+    from repro_torch.core.market import Market
+    from repro_torch.core.topology import build_cluster
+    from repro_torch.market_torch.engine import BatchEngine, build_tree
+    from repro_torch.sim.simulator import ScenarioConfig, \
+        run_with_retention
+    from repro_torch.sim.traces import market_trace
+    t_phase = time.perf_counter()
+    for regime, committed in COMMITTED_PARITY.items():
+        cfg = ScenarioConfig(regime=regime, **PARITY_CFG)
+        event = run_with_retention("laissez", cfg, device=dev)
+        _reset_launches()
+        t0 = time.perf_counter()
+        with _facade_counts() as counts:
+            batch = run_with_retention("laissez_batch", cfg, device=dev)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        events, steps = counts["events"], counts["steps"]
+        step_ms = counts["step_s"] * 1e3 / max(steps, 1)
+        pull_ms = counts["pull_s"] * 1e3 / max(steps, 1)
+        b, e = batch.mean_retention, event.mean_retention
+        got = f"{b:.3f}"
+        minus = f"{b - e:+.3f}"
+        emit({"phase": "event_path", "case": "fig06_parity",
+              "regime": regime, "mean_retention": b, "committed": committed,
+              "retention": batch.retention, "event_retention": e,
+              "batch_minus_event": minus,
+              "identical_to_event": batch.retention == event.retention,
+              "runs": 1 + len(batch.perf), "facade_events": events,
+              "steps": steps, "launches": launches, "wall_s": wall,
+              "ms_per_event": wall * 1e3 / max(events, 1),
+              "step_ms": step_ms, "pull_ms": pull_ms,
+              "other_ms_per_event": (wall - counts["step_s"]
+                                     - counts["pull_s"]) * 1e3
+              / max(events, 1), "stats": batch.stats})
+        others = {k: v for k, v in launches.items() if k != "market_clear"}
+        if launches["market_clear"] < steps or steps <= 0 or \
+                any(others.values()):
+            fail(f"the {regime} parity runs made {steps} engine steps and "
+                 f"launched {launches}")
+        if got != committed or minus != "+0.000":
+            fail(f"laissez_batch at {regime}: retention {got} (committed "
+                 f"{committed}), batch minus event {minus}")
+    topo = build_cluster({"H100": 16}, gpus_per_host=4, hosts_per_rack=2,
+                         racks_per_zone=2)
+    trace = market_trace(Market(topo), 0, 220)
+    t0 = time.perf_counter()
+    card, card_bm = _facade_replay(topo, trace, dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu, cpu_bm = _facade_replay(topo, trace, "cpu")
+    bad = [i for i, (g, c) in enumerate(zip(card, cpu)) if g != c]
+    eng = card_bm.engines["H100"]
+    small = _clear_card_vs_cpu(eng, card_bm.states["H100"],
+                               cpu_bm.engines["H100"])
+    n = FAULTS_10K["n_leaves"]
+    est = storm_res.engine_state
+    big_eng = BatchEngine(build_tree(n), capacity=est["price"].shape[0],
+                          n_tenants=est["bills"].shape[0], k=FAULTS_10K["k"],
+                          device=dev)
+    big_cpu = BatchEngine(build_tree(n), capacity=est["price"].shape[0],
+                          n_tenants=est["bills"].shape[0], k=FAULTS_10K["k"],
+                          device="cpu")
+    big = _clear_card_vs_cpu(big_eng, est, big_cpu)
+    emit({"phase": "event_path", "case": "trace_card_vs_cpu",
+          "events": len(trace), "differing_events": bad[:10],
+          "stats": card[-1][3], "card_s": card_s,
+          "ms_per_event": card_s * 1e3 / len(trace),
+          "clear_differs_trace_book": small,
+          "clear_differs_storm_book_10k": big,
+          "wall_s": time.perf_counter() - t_phase})
+    if bad or small or big:
+        fail(f"the event path on the card differs from the CPU: events "
+             f"{bad[:10]}, clear on the trace's book {small}, on the "
+             f"storm's 10k book {big}")
+    if card[-1][3]["transfers"] <= 0:
+        fail("the differential trace moved no leaf")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1266,7 +1681,9 @@ def main() -> None:
     fleet_res, fleet_launches = timed("main_path", phase_main_path, dev)
     kernels = [_market_clear_entry(fleet_res, fleet_launches)]
     timed("fig06_scale", phase_fig06_scale, dev, fleet_res)
-    timed("faults", phase_faults, dev)
+    storm = timed("faults", phase_faults, dev)
+    timed("recovery", phase_recovery, dev, *storm)
+    timed("event_path", phase_event_path, dev, storm[0])
     rep, launches = timed("serve_olmoe", phase_serve, dev, SERVE_ARCH)
     kernels += [_decode_attention_entry(rep, launches),
                 _moe_route_entry(rep, launches, dev)]

@@ -1,6 +1,7 @@
 """Topology forest, copied from ``repro.core.topology`` and trimmed to what
-the fleet path uses: each tree root is a resource type; zones, racks and
-hosts refine it; leaves are resource instances (paper §4.3)."""
+the fleet and event-market paths use: each tree root is a resource type;
+zones, racks and hosts refine it; leaves are resource instances (paper
+§4.3)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -69,6 +70,9 @@ class Topology:
     def ancestors(self, nid: int) -> Tuple[int, ...]:
         """self, parent, ..., root."""
         return self._ancestors[nid]
+
+    def node(self, nid: int) -> Node:
+        return self.nodes[nid]
 
 
 def build_cluster(type_counts: Dict[str, int], *, gpus_per_host: int = 8,

@@ -359,6 +359,24 @@ class BatchEngine:
             state["owner"], state["limit"], self.k,
             health=state["health"])
 
+    def clear(self, state):
+        """Full clearing pass: per-leaf charged rate, winning level, and
+        winning (owner-excluded, floor-gated) bid slot — the best live
+        entry of the ranked candidate slate (``clear_topk`` gives all
+        of it).  All int32 but the rate."""
+        rate, best_level, cands, _, _ = self._clear_arrays(state)
+        # argmax over an int mask: the first live rank, 0 when none
+        first = torch.argmax(i32(cands >= 0), dim=-1)
+        winner = torch.gather(cands, 1, first[:, None])[:, 0]
+        return rate, i32(best_level), i32(winner)
+
+    def clear_topk(self, state):
+        """Full clearing pass with the ranked ``(K', n_leaves)``
+        candidate slate (-1 entries are padding or excluded holes) and
+        the slate-truncation flag."""
+        rate, best_level, cands, trunc, _ = self._clear_arrays(state)
+        return rate, i32(best_level), i32(cands.T), i32(trunc)
+
     def _clip_bids(self, state, prices, levels, nodes):
         """Volatility control: clip each bid to max_bid_multiple x its
         scope's reference price (max of path floors, top of the scope's

@@ -25,6 +25,26 @@ def _isum(x: torch.Tensor) -> torch.Tensor:
     return x.sum(dtype=torch.int32)
 
 
+def accum_stats(stats, bids, transfers, sel, bids_clipped):
+    """The epoch's stats counters advanced by one engine step: orders
+    placed, transfers, explicit and implicit relinquishments, clipped
+    bids and fault revocations (device int32 scalars)."""
+    moved = transfers["moved"]
+    taken = moved & (transfers["new"] >= 0)
+    stats = dict(stats)
+    stats["orders"] = stats["orders"] + _isum(bids["tenant"] >= 0)
+    stats["transfers"] = stats["transfers"] + _isum(taken)
+    stats["explicit_relinquish"] = stats["explicit_relinquish"] \
+        + _isum(moved & sel)
+    stats["implicit_relinquish"] = stats["implicit_relinquish"] \
+        + _isum(taken & ~sel & (transfers["old"] >= 0))
+    stats["bids_clipped"] = stats["bids_clipped"] \
+        + bids_clipped.to(torch.int32)
+    stats["revoked_by_fault"] = stats["revoked_by_fault"] \
+        + _isum(transfers["revoked_by_fault"])
+    return stats
+
+
 class EpochRunner:
     """Epoch driver bound to a (market, fleet, rtype) triple."""
 
@@ -45,19 +65,8 @@ class EpochRunner:
         eng_state = eng.cancel_all(eng_state)
         eng_state, transfers, _bills = eng.step(
             eng_state, t, bids, None, relinq, limits)
-        moved = transfers["moved"]
-        taken = moved & (transfers["new"] >= 0)
-        stats = dict(stats)
-        stats["orders"] = stats["orders"] + _isum(bids["tenant"] >= 0)
-        stats["transfers"] = stats["transfers"] + _isum(taken)
-        stats["explicit_relinquish"] = stats["explicit_relinquish"] \
-            + _isum(moved & sel)
-        stats["implicit_relinquish"] = stats["implicit_relinquish"] \
-            + _isum(taken & ~sel & (transfers["old"] >= 0))
-        stats["bids_clipped"] = stats["bids_clipped"] \
-            + info["bids_clipped"].to(torch.int32)
-        stats["revoked_by_fault"] = stats["revoked_by_fault"] \
-            + _isum(transfers["revoked_by_fault"])
+        stats = accum_stats(stats, bids, transfers, sel,
+                            info["bids_clipped"])
         fleet_state, held = fleet.after_step(
             params, fleet_state, t, owner_b, eng_state["owner"], sel)
         fleet_state = fleet.advance(params, fleet_state, t, held)
@@ -94,6 +103,7 @@ class EpochRunner:
             epoch_s.append(time.perf_counter() - t0)
             t += tick_s
         market.states[rtype] = est
+        market._np[rtype] = None
         market.now = max(market.now, t - tick_s)
         host_stats = {k: int(stats[k]) for k in STAT_KEYS}
         for k in ("orders", "transfers", "explicit_relinquish",

@@ -1,7 +1,14 @@
-"""The fleet scenario driver on the PyTorch port — the fleet part of
-``repro.sim.simulator``: the paper's contention scenarios at 10k-node
-scale (docs/DESIGN.md §8), with performance retention under contention
-(paper §5.1) as the metric.
+"""Simulation runs on the PyTorch port — the twin of
+``repro.sim.simulator``, with performance retention under contention
+(paper §5.1) as the metric: per-tenant performance in a multi-tenant
+run divided by the same tenant's performance running alone.
+
+Two entry points: ``run_once`` / ``run_with_retention`` step the object
+tenants through one of the clouds of ``sim/cloud.py`` (the event-driven
+path: every market call of ``laissez_batch`` is one engine step behind
+the ``BatchMarket`` facade), and ``run_fleet_scenario`` runs the
+paper's contention scenarios at 10k-node scale on the vectorized fleet
+(docs/DESIGN.md §8).
 
 ``alone`` selects the retention denominator (see
 ``FleetScenarioConfig``).  The engine-alone runs go through the same
@@ -11,6 +18,7 @@ its fused epoch, has no counterpart here.
 """
 from __future__ import annotations
 
+import statistics
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -18,32 +26,44 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.econadapter import AdapterConfig
 from repro_torch.core.market import VolatilityControls
-from repro_torch.core.topology import build_cluster
+from repro_torch.core.topology import Topology, build_cluster
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.sim import traces
+from repro_torch.sim.cloud import CloudBase, FCFSCloud, FCFSPCloud, \
+    LaissezBatchCloud, LaissezCloud, SpotCloud
 from repro_torch.sim.workloads import ON_DEMAND, Tenant, WorkloadParams
 
 
 @dataclass
 class ScenarioConfig:
-    """The tenant-mix knobs ``make_tenants`` reads."""
     regime: str = "slight"          # right_sized | slight | heavy
     n_h100: int = 16
     n_a100: int = 16
     duration_s: float = 7200.0
+    tick_s: float = 30.0
     seed: int = 0
     n_training: int = 3
     n_inference: int = 3
     n_batch: int = 2
     overhead_mult: float = 1.0      # Fig 13
+    reconfig_estimate_mult: float = 1.0  # Fig 15
+    controls: VolatilityControls = field(
+        default_factory=lambda: VolatilityControls(max_bid_multiple=4.0,
+                                                   floor_fall_rate=0.5,
+                                                   min_holding_s=600.0))
+    # min_holding_s ~ the largest reconfig overhead: a node must get
+    # the chance to amortize its restart before a limit crossing can
+    # evict it (docs/DESIGN.md §13)
+    topology_aware: bool = True     # Fig 10 toggle
 
 
 # oversubscription factors per regime (Faro demand regimes)
 REGIME_DEMAND = {"right_sized": 1.0, "slight": 1.25, "heavy": 2.0}
 
 
-def make_tenants(cfg: ScenarioConfig) -> List[Tenant]:
+def make_tenants(cfg: ScenarioConfig, topo: Topology) -> List[Tenant]:
     """Tenant mix sized so aggregate peak demand hits the regime's
     oversubscription of cluster capacity (same draws, same order as
     the reference, from ``np.random.default_rng(cfg.seed)``)."""
@@ -63,8 +83,9 @@ def make_tenants(cfg: ScenarioConfig) -> List[Tenant]:
                            checkpoint_interval_s=rng.uniform(180, 420),
                            reconfig_s=rng.uniform(60, 240),
                            max_nodes=nodes * 2,
+                           topology_sensitive=True,
                            value_per_gap=rng.uniform(15, 40)),
-            arrival_s=rng.uniform(0, cfg.duration_s * 0.2),
+            topo, arrival_s=rng.uniform(0, cfg.duration_s * 0.2),
             overhead_mult=cfg.overhead_mult))
     for i in range(cfg.n_inference):
         nodes = max(1, int(round(share * rng.uniform(0.7, 1.3))))
@@ -78,7 +99,7 @@ def make_tenants(cfg: ScenarioConfig) -> List[Tenant]:
                                cfg.seed * 101 + i, cfg.duration_s,
                                base_rps=base_rps),
                            sla_value_per_h=rng.uniform(30, 80)),
-            arrival_s=rng.uniform(0, cfg.duration_s * 0.1),
+            topo, arrival_s=rng.uniform(0, cfg.duration_s * 0.1),
             overhead_mult=cfg.overhead_mult))
     for i in range(cfg.n_batch):
         nodes = max(1, int(round(share * rng.uniform(0.7, 1.3))))
@@ -90,10 +111,90 @@ def make_tenants(cfg: ScenarioConfig) -> List[Tenant]:
                            checkpoint_interval_s=600.0,
                            reconfig_s=rng.uniform(240, 720),  # Parabricks
                            max_nodes=nodes * 2,
+                           topology_sensitive=False,
                            value_per_gap=rng.uniform(8, 20)),
-            arrival_s=rng.uniform(0, cfg.duration_s * 0.3),
+            topo, arrival_s=rng.uniform(0, cfg.duration_s * 0.3),
             overhead_mult=cfg.overhead_mult))
     return tenants
+
+
+def build_cloud(kind: str, topo: Topology, cfg: ScenarioConfig,
+                device: DeviceLike = None) -> CloudBase:
+    if kind == "fcfs":
+        return FCFSCloud(topo)
+    if kind == "fcfsp":
+        return FCFSPCloud(topo)
+    if kind == "spot":
+        return SpotCloud(topo)
+    if kind == "laissez":
+        return LaissezCloud(topo, cfg.controls)
+    if kind == "laissez_batch":
+        return LaissezBatchCloud(topo, cfg.controls, device=device)
+    raise ValueError(f"unknown cloud kind {kind!r}")
+
+
+@dataclass
+class RunResult:
+    perf: Dict[str, float]
+    cost: Dict[str, float]
+    retention: Dict[str, float] = field(default_factory=dict)
+    stats: Dict[str, float] = field(default_factory=dict)
+
+    @property
+    def mean_retention(self) -> float:
+        vals = list(self.retention.values())
+        return statistics.fmean(vals) if vals else float("nan")
+
+
+def run_once(kind: str, cfg: ScenarioConfig,
+             only_tenant: Optional[str] = None,
+             device: DeviceLike = None) -> RunResult:
+    """One scenario run of cloud ``kind`` (``only_tenant``: that tenant
+    alone).  ``device`` (``None`` = CUDA) is where ``laissez_batch``'s
+    engines run; the other clouds are host Python."""
+    dev = resolve_device(device)
+    topo = build_cluster({"H100": cfg.n_h100, "A100": cfg.n_a100},
+                         gpus_per_host=4, hosts_per_rack=2,
+                         racks_per_zone=2)
+    cloud = build_cloud(kind, topo, cfg, dev)
+    tenants = make_tenants(cfg, topo)
+    if only_tenant is not None:
+        tenants = [t for t in tenants if t.name == only_tenant]
+    acfg = AdapterConfig(
+        topology_aware=cfg.topology_aware,
+        reconfig_estimate_mult=cfg.reconfig_estimate_mult)
+    for t in tenants:
+        if isinstance(cloud, LaissezCloud):
+            cloud.add_tenant(t, acfg)
+        else:
+            cloud.add_tenant(t)
+    t = 0.0
+    while t <= cfg.duration_s:
+        cloud.step(t)
+        for tn in cloud.tenants.values():
+            tn.advance(t)
+        t += cfg.tick_s
+    perf = {tn.name: tn.performance(cfg.duration_s)
+            for tn in cloud.tenants.values()}
+    cost = {tn.name: cloud.cost_of(tn.name)
+            for tn in cloud.tenants.values()}
+    stats = {}
+    if isinstance(cloud, LaissezCloud):
+        stats = dict(cloud.market.stats)
+    elif isinstance(cloud, SpotCloud):
+        stats = dict(cloud.stats)
+    return RunResult(perf=perf, cost=cost, stats=stats)
+
+
+def run_with_retention(kind: str, cfg: ScenarioConfig,
+                       device: DeviceLike = None) -> RunResult:
+    """Multi-tenant run + per-tenant alone runs => retention (Fig 6)."""
+    multi = run_once(kind, cfg, device=device)
+    for name in list(multi.perf):
+        alone = run_once(kind, cfg, only_tenant=name, device=device)
+        denom = max(alone.perf[name], 1e-9)
+        multi.retention[name] = min(1.5, multi.perf[name] / denom)
+    return multi
 
 
 @dataclass
@@ -163,9 +264,9 @@ class FleetRunResult:
 
 def make_fleet(fcfg: FleetScenarioConfig, device: DeviceLike = None):
     """Build ``(topo, tenants, market, fleet, params)`` for a fleet
-    scenario on ``device`` (``None`` = CUDA).  The fleet is
-    locality-free, so the reference's ``topology_sensitive`` flag (which
-    it forces off here) has no counterpart."""
+    scenario on ``device`` (``None`` = CUDA).  Tenant mixes reuse
+    ``make_tenants``'s regime scaling on a single H100 tree, with
+    ``topology_sensitive`` forced off: the fleet is locality-free."""
     from repro_torch.market_torch.bridge import BatchMarket
     from repro_torch.sim.fleet import Fleet, FleetConfig, \
         params_from_tenants
@@ -174,10 +275,12 @@ def make_fleet(fcfg: FleetScenarioConfig, device: DeviceLike = None):
                          hosts_per_rack=4, racks_per_zone=4)
     scfg = ScenarioConfig(
         regime=fcfg.regime, n_h100=fcfg.n_leaves, n_a100=0,
-        duration_s=fcfg.duration_s, seed=fcfg.seed,
+        duration_s=fcfg.duration_s, tick_s=fcfg.tick_s, seed=fcfg.seed,
         n_training=fcfg.n_training, n_inference=fcfg.n_inference,
-        n_batch=fcfg.n_batch)
-    tenants = make_tenants(scfg)
+        n_batch=fcfg.n_batch, controls=fcfg.controls)
+    tenants = make_tenants(scfg, topo)
+    for t in tenants:
+        t.p.topology_sensitive = False
     cap = 1 << max(11, (2 * fcfg.b_max - 1).bit_length())
     market = BatchMarket(topo, fcfg.controls, capacity=cap,
                          n_tenants=len(tenants) + 1, k=fcfg.k, device=dev)

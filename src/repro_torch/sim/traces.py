@@ -1,6 +1,8 @@
-"""Synthetic inference-load traces, copied from ``repro.sim.traces``:
-diurnal sinusoid plus log-normal bursts and occasional spikes on a 10 s
-tick (docs/DESIGN.md §7), and the dense rate grid the fleet reads."""
+"""Synthetic traces: inference load, copied from ``repro.sim.traces``
+(diurnal sinusoid plus log-normal bursts and occasional spikes on a 10 s
+tick, docs/DESIGN.md §7) with the dense rate grid the fleet reads, and
+random Market-API event traces for replaying one workload on several
+markets."""
 from __future__ import annotations
 
 import math
@@ -44,3 +46,60 @@ def sample_rate_grid(rate_fns: List[Optional[Callable[[float], float]]],
             continue
         out[i] = [f(k * tick_s) for k in range(n_ticks)]
     return out
+
+
+def market_trace(market, seed: int, n_events: int,
+                 n_tenants: int = 5) -> List[tuple]:
+    """A random Market-API event trace (``tests/test_differential.py``'s
+    generator): operator floors of 2.0 at every root, then place (55%),
+    floor (10%), relinquish (15%) and advance (20%) events over
+    ``n_tenants`` tenants, each applied to ``market`` (an event
+    ``Market``) as it is drawn — the market decides which leaves a
+    relinquish can release.  Returns the events for ``apply_event``."""
+    rng = np.random.default_rng(seed)
+    topo = market.topo
+    tenants = [f"t{i}" for i in range(n_tenants)]
+    nodes = [n.node_id for n in topo.nodes]
+    events = [("floor", root, 2.0) for root in topo.roots.values()]
+    for e in events:
+        apply_event(market, e)
+    now = 0.0
+    for _ in range(n_events):
+        kind = rng.choice(["place", "floor", "relinquish", "advance"],
+                          p=[0.55, 0.1, 0.15, 0.2])
+        if kind == "place":
+            t = tenants[rng.integers(len(tenants))]
+            scope = nodes[rng.integers(len(nodes))]
+            price = float(rng.uniform(0.5, 12.0))
+            e = ("place", t, scope, price,
+                 price * float(rng.uniform(1.0, 1.6)))
+        elif kind == "floor":
+            e = ("floor", nodes[rng.integers(len(nodes))],
+                 float(rng.uniform(0.0, 8.0)))
+        elif kind == "relinquish":
+            t = tenants[rng.integers(len(tenants))]
+            owned = sorted(market.owned_leaves(t))
+            if not owned:
+                continue
+            e = ("relinquish", t, owned[rng.integers(len(owned))])
+        else:
+            now += float(rng.uniform(60.0, 1800.0))
+            e = ("advance", now)
+        apply_event(market, e)
+        events.append(e)
+    return events
+
+
+def apply_event(market, event: tuple) -> None:
+    """One ``market_trace`` event on any market with the Market API."""
+    kind = event[0]
+    if kind == "place":
+        market.place_order(*event[1:4], limit=event[4])
+    elif kind == "floor":
+        market.set_floor(*event[1:])
+    elif kind == "relinquish":
+        market.relinquish(*event[1:])
+    elif kind == "cancel":
+        market.cancel_order(*event[1:])
+    else:
+        market.advance_to(event[1])

@@ -682,3 +682,109 @@ def test_ssd_scan_wrapper_refuses_layouts_on_card():
     with pytest.raises(ValueError, match="chunk"):
         SK.ssd_scan_cuda(x, dt, A, Bm, Cm, SK.QMAX + 1)
 
+
+
+# ------------------------------------------- event path and recovery
+def _facade_fingerprints(topo, events, dev):
+    from repro_torch.market_torch.bridge import BatchMarket
+    from repro_torch.sim.traces import apply_event
+    bm = BatchMarket(topo, capacity=1 << 10, n_tenants=16, device=dev)
+    calls = []
+    bm.on_transfer.append(lambda *a: calls.append(a))
+    leaves = [leaf for root in topo.roots.values()
+              for leaf in topo.leaves_of(root)]
+    out = []
+    for e in events:
+        apply_event(bm, e)
+        out.append(([bm.owner_of(leaf) for leaf in leaves],
+                    [bm.market_rate(leaf) for leaf in leaves], bm.settle(),
+                    dict(bm.stats), list(calls),
+                    [(o.slot, o.seq, o.active) for o in bm.orders.values()]))
+    return out
+
+
+@pytest.mark.cuda
+def test_facade_trace_on_card_matches_cpu():
+    """A two-rtype facade trace: after every event the card's facade
+    (clearing kernel) equals the CPU's (plain version) — owners, rates,
+    settle bills, stats, callbacks and orders — and the kernel ran."""
+    _need_cuda()
+    from repro_torch.core.market import Market
+    from repro_torch.core.topology import build_cluster
+    from repro_torch.sim.traces import market_trace
+    topo = build_cluster({"H100": 8, "A100": 8}, gpus_per_host=2,
+                         hosts_per_rack=2, racks_per_zone=1)
+    events = market_trace(Market(topo), 2, 120)
+    K.LAUNCHES = 0
+    gpu = _facade_fingerprints(topo, events, "cuda")
+    assert K.LAUNCHES > len(events)
+    cpu = _facade_fingerprints(topo, events, "cpu")
+    for i, (g, c) in enumerate(zip(gpu, cpu)):
+        assert g == c, (i, events[i])
+    assert cpu[-1][3]["transfers"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_leaves,k,seed", [(64, 4, 0), (1024, 8, 1)])
+def test_clear_and_topk_on_card_match_cpu(n_leaves, k, seed):
+    _need_cuda()
+    eng, st = _book(build_tree(n_leaves), k, seed, "cuda")
+    ceng, cst = _book(build_tree(n_leaves), k, seed, "cpu")
+    K.LAUNCHES = 0
+    got = eng.clear(st) + eng.clear_topk(st)
+    assert K.LAUNCHES == 2
+    want = ceng.clear(cst) + ceng.clear_topk(cst)
+    for j, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w), j
+
+
+def _recovery_run(dev, workdir, crashes=(), resume=False):
+    from repro_torch.market_torch.engine import build_tree as bt
+    from repro_torch.sim import simulator as TS
+    from repro_torch.sim.faults import FaultEvent, FaultInjector, \
+        rack_failure_storm, zone_supply_shock
+    from repro_torch.sim.recovery import CrashSafeRunner
+    cfg = TS.FleetScenarioConfig(
+        regime="heavy", n_leaves=64, n_training=3, n_inference=3,
+        n_batch=2, duration_s=600.0, tick_s=60.0, seed=3, k=4, b_max=64,
+        per_tenant_bids=4, alone="none")
+    events = (rack_failure_storm(bt(64), 120.0, 400.0, 180.0, 150.0, seed=9)
+              + zone_supply_shock(240.0, 420.0, zone=0)
+              + [FaultEvent(t, "crash", phase=ph) for t, ph in crashes])
+    topo, _, market, fleet, params = TS.make_fleet(cfg, dev)
+    TS._seed_floors(market, topo)
+    runner = CrashSafeRunner(market, fleet, "H100", str(workdir),
+                             injector=FaultInjector(events))
+    go = runner.resume if resume else runner.run
+    fs, stats = go(params, 600.0, 60.0)
+    est = to_numpy(market.states["H100"])
+    return ({k: est[k] for k in ("owner", "rate", "bills", "health")},
+            fleet.performance(params, fs, 600.0).cpu().numpy(), stats,
+            int(est["waves"]))
+
+
+def _assert_runs_equal(a, b):
+    for key in a[0]:
+        np.testing.assert_array_equal(a[0][key], b[0][key], err_msg=key)
+    np.testing.assert_array_equal(a[1], b[1])
+    assert a[2] == b[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase", ["mid_wal", "post_step"])
+def test_kill_and_resume_on_card(tmp_path, phase):
+    """A 64-leaf fleet run on the card, killed mid-run and resumed on
+    the card, equals the uninterrupted card run; the resume restored
+    its snapshot onto the card and cleared with the kernel once per
+    cascade wave."""
+    _need_cuda()
+    from repro_torch.sim.recovery import SimulatedCrash
+    base = _recovery_run("cuda", tmp_path / "base")
+    with pytest.raises(SimulatedCrash):
+        _recovery_run("cuda", tmp_path / "kill", [(300.0, phase)])
+    K.LAUNCHES = 0
+    got = _recovery_run("cuda", tmp_path / "kill", resume=True)
+    _assert_runs_equal(got, base)
+    # resumed after epoch 4's snapshot: the waves since then
+    assert 0 < K.LAUNCHES < base[3]
+    _assert_runs_equal(base, _recovery_run("cpu", tmp_path / "cpu"))
