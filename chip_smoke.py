@@ -20,11 +20,18 @@ Phases (one JSON line each):
    within that weight tolerance (float32) or one bfloat16 step of the
    plain version's; ssd_scan's y within 3e-4 in float32 and 4e-2 in bfloat16,
    its float32 final state within 3e-4, at the mamba2 serving shape, a
-   partial last chunk, B 2 and a reference sweep shape), the whole
-   fleet slice at a small size on the card against the same run on the
-   CPU (identical state, perf and stats), and the reduced OLMoE and
-   mamba2 servers on the card against the same runs on the CPU in
-   float32 (the same tokens, the last logits within 1e-4);
+   partial last chunk, B 2 and a reference sweep shape; decode_attention
+   again at every ``DECODE_SHAPES`` model shape: gemma3's windowed and
+   global layers, qwen3, danube's head dim 80 under its 4,096 window,
+   paligemma's MQA at head dim 256, whisper's self- and
+   cross-attention), the whole fleet slice at a small size on the card
+   against the same run on the CPU (identical state, perf and stats),
+   and seven reduced models on the card against the same runs on the
+   CPU in float32 (the same tokens, the last logits within 1e-4, every
+   launch count exact): the OLMoE and mamba2 servers, the qwen3, gemma3,
+   danube, jamba and kimi servers on 20-token prompts (past the reduced
+   window of 16), and paligemma and whisper through prefill and 8
+   decode steps;
 3. the fleet main path: ``run_fleet_scenario`` on ``FLEET_10K`` (10,000
    leaves, 1,000 tenants, 21 epochs, the engine-sampled retention
    denominator: 12 single-tenant alone runs after the drive), with
@@ -78,6 +85,20 @@ Phases (one JSON line each):
    16 times a prefill or decode step, mamba2 ssd_scan 48 times a
    prefill, and neither path any other kernel; each reports time to
    first token, decode ms per step and output tokens per second;
+4b. this slice's main path, ``gemma3-27b`` served at full width (27.0 B
+   bfloat16 parameters, the same traffic): every request 32 tokens in
+   the vocabulary, finite logits, decode_attention 62 times a decode
+   step (52 of them within the window of 1,024) and no other kernel,
+   with peak memory, the init's own peak, time to first token, decode
+   ms per step and tokens per second; then ``qwen3-0.6b`` on the same
+   traffic and ``h2o-danube-1.8b`` on ``DANUBE_SERVE`` (4,160-token
+   prompts, past its window), with the same checks; then
+   ``paligemma-3b`` and ``whisper-base`` at full width, which the
+   Server cannot feed, through prefill and 8 greedy decode steps
+   (``FRONTEND_FULL``: B 2, 16 text tokens, 256 seeded patch or 1,500
+   frame embeddings): finite logits, tokens in the vocabulary,
+   decode_attention once per self- and cross-attention layer per step;
+   each model is freed before the next;
 5. a ``kernels`` line: per kernel, its launches on its main path, its
    time per call, the plain version's time and one PyTorch library
    call's time on the same inputs (none computes the SSD scan), and the
@@ -91,6 +112,11 @@ Phases (one JSON line each):
    CUDA graph (device time; the eager times, host enqueue included,
    stand beside them as ``*_ms_eager``); market_clear's plain version
    reads the device, so it cannot be captured and its time is eager.
+   decode_attention's entry holds the OLMoE shape and, under ``paths``,
+   the gemma3 windowed, danube, paligemma and whisper cross shapes on
+   their own caches (each with its launches, times, bound over the
+   valid window's bytes and SDPA on the same range); its
+   ``launches_by_path`` counts every serving path's launches.
 
 Each phase's wall seconds and the total stand on the ``done`` line.
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -151,8 +177,27 @@ FP32_OPS_PER_S = 67e12           # H100 SXM, float32 outside tensor cores
 BF16_OPS_PER_S = 989e12          # H100 SXM, bf16 tensor cores, dense
 SERVE_ARCH = "olmoe-1b-7b"
 SSM_ARCH = "mamba2-780m"
+DENSE_ARCH = "gemma3-27b"        # the dense / sliding-window main path
 # the serving main paths: 8 requests of 1,024 tokens, 32 new, 4 slots
 SERVE_FULL = dict(requests=8, prompt_len=1024, max_new=32, slots=4)
+# h2o-danube-1.8b: prompts past its 4,096 window, so that the window cuts
+# in prefill and in every decode step
+DANUBE_SERVE = dict(requests=2, prompt_len=4160, max_new=16, slots=2)
+# paligemma-3b and whisper-base, which the Server cannot feed (their
+# frontends' embeddings): prefill of B 2 x 16 text tokens with 256 patch
+# or 1,500 frame embeddings, then 8 greedy decode steps
+FRONTEND_FULL = dict(batch=2, text_tokens=16, steps=8)
+# decode_attention against its plain version at the new model paths'
+# shapes: (path, B, S, K, G, hd, [(pos, window), ...])
+DECODE_SHAPES = (
+    ("gemma3", 4, 1064, 16, 2, 128, ((1054, 1024), (1054, 0), (1023, 1024),
+                                     (1024, 1024))),
+    ("qwen3", 4, 1064, 8, 2, 128, ((1054, 0),)),
+    ("danube", 2, 4184, 8, 4, 80, ((4170, 4096), (4096, 4096), (4095, 4096))),
+    ("paligemma", 2, 280, 1, 8, 256, ((279, 0), (272, 0))),
+    ("whisper_self", 2, 24, 8, 1, 64, ((23, 0),)),
+    ("whisper_cross", 2, 1500, 8, 1, 64, ((1499, 0),)),
+)
 
 _LINES = []
 
@@ -564,16 +609,17 @@ def phase_ssd_vs_plain(dev):
 
 def _expected_launches(cfg, rep):
     """Every kernel's launches on a serving run: decode_attention once
-    per attention layer per decode step, moe_route once per MoE layer
-    per prefill or decode step, ssd_scan once per SSD layer per
-    prefill (decode runs the one-token recurrence), market_clear
-    never."""
+    per attention layer (and once more per decoder layer's
+    cross-attention) per decode step, moe_route once per MoE layer per
+    prefill or decode step, ssd_scan once per SSD layer per prefill
+    (decode runs the one-token recurrence), market_clear never."""
     plan = cfg.layer_plan()
     n_attn = sum(spec.kind == "attn" for spec in plan)
+    n_cross = cfg.num_layers if cfg.enc_dec else 0
     n_ssm = sum(spec.kind == "ssm" for spec in plan)
     n_moe = sum(spec.moe for spec in plan)
     return {"market_clear": 0,
-            "decode_attention": n_attn * rep.decode_steps,
+            "decode_attention": (n_attn + n_cross) * rep.decode_steps,
             "moe_route": n_moe * (rep.prefills + rep.decode_steps),
             "ssd_scan": n_ssm * rep.prefills}
 
@@ -588,16 +634,9 @@ def phase_reduced_server(dev, arch, prompt_len):
     from repro_torch.models.model import init_params
     cfg = get_config(arch).reduced()
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-
-    def to(tree, d):
-        if isinstance(tree, dict):
-            return {k: to(v, d) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, d) for v in tree]
-        return tree.to(d)
     shape = dict(requests=3, prompt_len=prompt_len, max_new=4, slots=2)
     _reset_launches()
-    gpu = serve(arch, cfg=cfg, params=to(params, dev), device=dev, **shape)
+    gpu = serve(arch, cfg=cfg, params=_to(params, dev), device=dev, **shape)
     launches = _read_launches()
     cpu = serve(arch, cfg=cfg, params=params, device="cpu", **shape)
     same = [r.out for r in gpu.requests] == [r.out for r in cpu.requests]
@@ -615,6 +654,128 @@ def phase_reduced_server(dev, arch, prompt_len):
         fail(f"reduced server on the card differs from the CPU run: tokens "
              f"equal {same}, logits err {err}, launches {launches} "
              f"(expected {want})")
+
+
+def _to(tree, d):
+    if isinstance(tree, dict):
+        return {k: _to(v, d) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, d) for v in tree]
+    return tree.to(d)
+
+
+def _frontend_batch(cfg, B, S, seed, dev):
+    """Seeded tokens and the frontend's seeded embeddings (vision: the
+    patches, audio: the frames; ``num_prefix_tokens`` of them)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    emb = rng.standard_normal((B, cfg.num_prefix_tokens, cfg.d_model))
+    key = "prefix_embeds" if cfg.frontend == "vision_stub" \
+        else "encoder_embeds"
+    return {"tokens": torch.from_numpy(toks).to(dev),
+            key: torch.from_numpy(emb.astype(np.float32)).to(dev)}
+
+
+def _prefill_decode(params, cfg, batch, steps):
+    """Prefill, then ``steps`` greedy decode steps, as
+    tests/test_models.py ``test_arch_prefill_decode`` drives a frontend
+    model.  Returns (tokens (B, steps + 1), last logits, cache, prefill
+    s, decode s per step), each time ending in a synchronise."""
+    import torch
+    from repro_torch.models import model as M
+    dev = batch["tokens"].device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    B, S = batch["tokens"].shape
+    P = cfg.num_prefix_tokens if cfg.frontend == "vision_stub" else 0
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(params, cfg, batch, max_len=P + S + steps)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    sync()
+    prefill_s = time.perf_counter() - t0
+    out, step_s = [tok], []
+    for t in range(steps):
+        t0 = time.perf_counter()
+        logits, cache = M.decode_step(params, cfg, cache, tok, P + S + t)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        out.append(tok)
+        sync()
+        step_s.append(time.perf_counter() - t0)
+    return torch.cat(out, 1), logits, cache, prefill_s, step_s
+
+
+def phase_reduced_prefill_decode(dev, arch):
+    """A reduced frontend model (float32) through prefill and 8 decode
+    steps on the card against the same run on the CPU: the same tokens,
+    the last logits within 1e-4, decode_attention once per self- and
+    cross-attention layer per step."""
+    import torch
+    from types import SimpleNamespace
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    steps = FRONTEND_FULL["steps"]
+    batch = _frontend_batch(cfg, 2, 20, 5, "cpu")
+    _reset_launches()
+    gtok, glog, *_ = _prefill_decode(_to(params, dev), cfg,
+                                     _to(batch, dev), steps)
+    launches = _read_launches()
+    ctok, clog, *_ = _prefill_decode(params, cfg, batch, steps)
+    same = bool(torch.equal(gtok.cpu(), ctok))
+    err = float((glog.cpu() - clog).abs().max())
+    close = bool(torch.allclose(glog.cpu(), clog, rtol=1e-4, atol=1e-4))
+    want = _expected_launches(cfg, SimpleNamespace(prefills=1,
+                                                   decode_steps=steps))
+    emit({"phase": "reduced_prefill_decode_gpu_vs_cpu", "arch": cfg.name,
+          "reduced": True, "batch": 2, "text_tokens": 20, "steps": steps,
+          "tokens_equal": same, "tokens": gtok.cpu().tolist(),
+          "logits_max_abs_err": err, "tolerance": 1e-4,
+          "launches": launches, "expected_launches": want})
+    if not (same and close and launches == want):
+        fail(f"reduced {cfg.name} prefill/decode on the card differs from "
+             f"the CPU run: tokens equal {same}, logits err {err}, "
+             f"launches {launches} (expected {want})")
+
+
+def phase_decode_shapes_vs_plain(dev):
+    """decode_attention against its plain version at every new model
+    path's shape (``DECODE_SHAPES``): gemma3's windowed and global
+    layers, qwen3, danube's head dim 80 under its 4,096 window,
+    paligemma's MQA at head dim 256, whisper's self- and cross-attention
+    (every key valid: pos Sk - 1, no window)."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ref as DR
+    for path, B, S, K, G, hd, cases in DECODE_SHAPES:
+        for dtype, tol in (("float32", 2e-5), ("bfloat16", 3e-2)):
+            dt = getattr(torch, dtype)
+            q = _randn((B, K, G, hd), 11, dev, dt)
+            k = _randn((B, S, K, hd), 12, dev, dt)
+            v = _randn((B, S, K, hd), 13, dev, dt)
+            for pos, window in cases:
+                got = DK.decode_attention_cuda(q, k, v, pos, window)
+                want = DR.decode_attention_ref(q, k, v, pos, window)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                ok = bool(torch.allclose(got.float(), want.float(),
+                                         rtol=tol, atol=tol))
+                lo, hi, _ = DK.valid_range(S, pos, window)
+                emit({"phase": "kernel_vs_plain",
+                      "kernel": "decode_attention",
+                      "case": f"{path}_{dtype}_pos{pos}_win{window}",
+                      "shape": [B, S, K, G, hd], "valid": [lo, hi],
+                      "max_abs_err": err, "tolerance": tol, "ok": ok})
+                if not ok:
+                    fail(f"decode_attention differs from its plain version "
+                         f"at {path} {dtype} pos {pos} window {window}: "
+                         f"max err {err}")
+            del q, k, v
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1251,7 +1412,7 @@ def phase_event_path(dev, storm_res):
 
 
 # ------------------------------------------------------------------ phase 4
-def phase_serve(dev, arch):
+def phase_serve(dev, arch, traffic=SERVE_FULL):
     """A serving main path at full width, with every launch count set
     to 0 just before and read just after."""
     import torch
@@ -1259,7 +1420,7 @@ def phase_serve(dev, arch):
     torch.cuda.reset_peak_memory_stats(dev)
     _reset_launches()
     t0 = time.perf_counter()
-    rep = serve(arch, full=True, device=dev, **SERVE_FULL)
+    rep = serve(arch, full=True, device=dev, **traffic)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _read_launches()
@@ -1269,8 +1430,12 @@ def phase_serve(dev, arch):
     lengths = [len(r.out) for r in rep.requests]
     in_vocab = all(0 <= t < cfg.vocab_size for r in rep.requests
                    for t in r.out)
+    windows = sorted({spec.window for spec in cfg.layer_plan()})
     emit({"phase": "serve_main_path", "arch": cfg.name, "full": True,
-          "param_dtype": cfg.param_dtype, **SERVE_FULL,
+          "param_dtype": cfg.param_dtype, **traffic,
+          "params_b": cfg.param_counts()[0] / 1e9,
+          "windows": {w: sum(spec.window == w for spec in cfg.layer_plan())
+                      for w in windows},
           "max_len": rep.server.max_len, "served": rep.served,
           "tokens_per_request": lengths, "prefills": rep.prefills,
           "decode_steps": rep.decode_steps, "launches": launches,
@@ -1280,9 +1445,10 @@ def phase_serve(dev, arch):
                                 for t in rep.ttft_s.values()),
           "tick_ms": [float(t * 1e3) for t in rep.tick_s],
           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+          "init_s": rep.init_s, "init_peak_gb": rep.init_peak_bytes / 1e9,
           "wall_with_init_s": wall})
-    if rep.served != SERVE_FULL["requests"] or \
-            any(n != SERVE_FULL["max_new"] for n in lengths) or not in_vocab:
+    if rep.served != traffic["requests"] or \
+            any(n != traffic["max_new"] for n in lengths) or not in_vocab:
         fail(f"serving main path finished {rep.served} requests with "
              f"{lengths} tokens (in vocab: {in_vocab})")
     if not finite:
@@ -1291,6 +1457,61 @@ def phase_serve(dev, arch):
         fail(f"the {cfg.name} serving main path launched {launches}; "
              f"expected {want}")
     return rep, launches
+
+
+def phase_prefill_decode(dev, arch):
+    """A frontend model at full width (bfloat16, random weights from
+    ``torch.Generator`` seed 0): ``FRONTEND_FULL`` with seeded patch or
+    frame embeddings, every launch count set to 0 just before and read
+    just after.  Returns the config and the cache for the kernels line."""
+    import torch
+    from types import SimpleNamespace
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, S, steps = (FRONTEND_FULL[k] for k in ("batch", "text_tokens",
+                                              "steps"))
+    batch = _frontend_batch(cfg, B, S, 6, dev)
+    _reset_launches()
+    toks, logits, cache, prefill_s, step_s = _prefill_decode(
+        params, cfg, batch, steps)
+    launches = _read_launches()
+    want = _expected_launches(cfg, SimpleNamespace(prefills=1,
+                                                   decode_steps=steps))
+    finite = bool(torch.isfinite(logits).all())
+    in_vocab = bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+    emit({"phase": "prefill_decode_main_path", "arch": cfg.name,
+          "full": True, "param_dtype": cfg.param_dtype,
+          "params_b": cfg.param_counts()[0] / 1e9, "frontend": cfg.frontend,
+          "prefix_or_frames": cfg.num_prefix_tokens, **FRONTEND_FULL,
+          "tokens_shape": list(toks.shape), "logits_finite": finite,
+          "tokens_in_vocab": in_vocab, "launches": launches,
+          "expected_launches": want, "init_s": init_s,
+          "prefill_ms": prefill_s * 1e3,
+          "decode_ms_per_step_p50": sorted(step_s)[len(step_s) // 2] * 1e3,
+          "decode_ms_all": [t * 1e3 for t in step_s],
+          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+    if not (finite and in_vocab) or tuple(toks.shape) != (B, steps + 1):
+        fail(f"{cfg.name} prefill/decode gave tokens {tuple(toks.shape)} "
+             f"(in vocab {in_vocab}), finite logits {finite}")
+    if launches != want or not want["decode_attention"]:
+        fail(f"the {cfg.name} prefill/decode path launched {launches}; "
+             f"expected {want}")
+    return cfg, cache, launches
+
+
+def _release() -> None:
+    """Return the memory of a model the caller has dropped, before the
+    next model's peak."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1414,47 +1635,47 @@ def _bound(nbytes, ops, ops_per_s):
         else "operations"
 
 
-def _decode_attention_entry(rep, launches):
-    """At the serving main path's last decode step: the 16 layers'
-    full-width caches (bfloat16, B 4, S 1,064, K 16, hd 128) at the last
-    decode position, one layer per call in turn, so every call finds its
-    ~35 MB of keys and values outside the 50 MB L2 as the model's layer
-    loop does.  ``splits`` is the kernel's split-KV plan there."""
+def _decode_numbers(ck, cv, G, pos, window, seed=7):
+    """decode_attention on a path's caches ``ck``/``cv`` (L, B, S, K, hd)
+    at ``pos`` and ``window``, one layer per call in turn, so that the
+    calls find the keys and values of several layers as the model's
+    layer loop does: its error against the plain version, the kernel's,
+    the plain version's and SDPA's times on the same valid range, the
+    bound from the bytes of the valid positions, and the split plan."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import kernel as DK
     from repro_torch.kernels.decode_attention import ref as DR
-    blk = rep.server.cache["blocks"][0]
-    ck, cv = blk["k"], blk["v"]                 # (L, B, S, K, hd)
     n_layers, B, S, K, hd = ck.shape
-    G = rep.cfg.num_heads // K
-    pos = SERVE_FULL["prompt_len"] + SERVE_FULL["max_new"] - 2
-    q = _randn((B, K, G, hd), 7, ck.device, ck.dtype)
-    got = DK.decode_attention_cuda(q, ck[0], cv[0], pos)
-    want = DR.decode_attention_ref(q, ck[0], cv[0], pos)
+    q = _randn((B, K, G, hd), seed, ck.device, ck.dtype)
+    lo, hi, _ = DK.valid_range(S, pos, window)
+    got = DK.decode_attention_cuda(q, ck[0], cv[0], pos, window)
+    want = DR.decode_attention_ref(q, ck[0], cv[0], pos, window)
 
     def sdpa(i):
-        kk = ck[i % n_layers][:, :pos + 1].transpose(1, 2)
-        vv = cv[i % n_layers][:, :pos + 1].transpose(1, 2)
+        kk = ck[i % n_layers][:, lo:hi + 1].transpose(1, 2)
+        vv = cv[i % n_layers][:, lo:hi + 1].transpose(1, 2)
         return F.scaled_dot_product_attention(
             q.reshape(B, K * G, 1, hd), kk, vv, enable_gqa=True)
     lib = sdpa(0).reshape(B, K, G, hd)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    if not torch.allclose(got.float(), want.float(), rtol=3e-2, atol=3e-2):
-        fail(f"decode_attention differs from its plain version on the "
-             f"serving main path's cache: max err {err}")
+    tol = 3e-2 if ck.dtype == torch.bfloat16 else 2e-5
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        fail(f"decode_attention differs from its plain version on a "
+             f"serving path's cache {tuple(ck.shape)} at pos {pos} window "
+             f"{window}: max err {err}")
     times = _timings(
         lambda i: DK.decode_attention_cuda(q, ck[i % n_layers],
-                                           cv[i % n_layers], pos),
+                                           cv[i % n_layers], pos, window),
         lambda i: DR.decode_attention_ref(q, ck[i % n_layers],
-                                          cv[i % n_layers], pos),
+                                          cv[i % n_layers], pos, window),
         sdpa, 160, 32)
     esize = ck.element_size()
 
     def nbytes(n):      # q and out once, the keys and values of n positions
         return esize * (2 * B * K * G * hd + 2 * B * n * K * hd)
-    n = pos + 1
+    n = hi - lo + 1
     ops = 4 * B * K * G * n * hd                 # q.k and p.v, 2 flops each
     rate = BF16_OPS_PER_S if ck.dtype == torch.bfloat16 else FP32_OPS_PER_S
     bound_ms, bound_by = _bound(nbytes(n), ops, rate)
@@ -1462,19 +1683,45 @@ def _decode_attention_entry(rep, launches):
     splits, split_len = DK.split_plan(
         n, B * K, torch.cuda.get_device_properties(ck.device)
         .multi_processor_count)
-    return {"name": "decode_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/decode_attention.cu",
-            "replaces": "src/repro/kernels/decode_attention/kernel.py:78",
-            "launches": launches["decode_attention"], "max_abs_err": err,
-            **times, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library": "F.scaled_dot_product_attention(enable_gqa=True)",
+    return {"max_abs_err": err, **times, "bound_ms": bound_ms,
+            "bound_by": bound_by,
             "library_max_abs_err": float((lib.float() - got.float())
                                          .abs().max()),
             "shapes": {"B": B, "S": S, "K": K, "G": G, "hd": hd,
-                       "pos": pos, "dtype": str(ck.dtype)},
+                       "pos": pos, "window": window, "lo": lo, "hi": hi,
+                       "layers_rotated": n_layers, "dtype": str(ck.dtype)},
             "splits": splits, "split_len": split_len,
             "bytes": nbytes(n), "operations": ops,
             "bound_ms_full_S": full_ms}
+
+
+def _decode_attention_entry(rep, launches):
+    """At the serving main path's last decode step: the 16 layers'
+    full-width caches (bfloat16, B 4, S 1,064, K 16, hd 128) at the last
+    decode position, one layer per call in turn, so every call finds its
+    ~35 MB of keys and values outside the 50 MB L2 as the model's layer
+    loop does.  ``splits`` is the kernel's split-KV plan there.  The
+    other serving paths' shapes join it under ``paths``."""
+    blk = rep.server.cache["blocks"][0]
+    G = rep.cfg.num_heads // rep.cfg.num_kv_heads
+    pos = SERVE_FULL["prompt_len"] + SERVE_FULL["max_new"] - 2
+    nums = _decode_numbers(blk["k"], blk["v"], G, pos, 0)
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:78",
+            "launches": launches["decode_attention"], **nums,
+            "library": "F.scaled_dot_product_attention(enable_gqa=True)",
+            "launches_by_path": {rep.cfg.name: launches["decode_attention"]},
+            "paths": []}
+
+
+def _decode_path_entry(entry, arch, launches, ck, cv, G, pos, window):
+    """One more serving path's decode_attention numbers (its caches, its
+    last decode position), added to the kernel's entry."""
+    entry["launches_by_path"][arch] = launches["decode_attention"]
+    entry["paths"].append({"path": arch,
+                           "launches": launches["decode_attention"],
+                           **_decode_numbers(ck, cv, G, pos, window)})
 
 
 def _route_inputs(T, D, E, dev):
@@ -1675,9 +1922,16 @@ def main() -> None:
     timed("model_kernels_vs_plain", phase_model_kernels_vs_plain, dev)
     ssd_measured = timed("ssd_vs_plain", phase_ssd_vs_plain, dev)
     timed("small_slice", phase_small_slice, dev)
+    timed("decode_shapes_vs_plain", phase_decode_shapes_vs_plain, dev)
     timed("reduced_olmoe", phase_reduced_server, dev, SERVE_ARCH, 8)
     # a whole chunk and a part
     timed("reduced_mamba2", phase_reduced_server, dev, SSM_ARCH, 20)
+    # 20 tokens: past the reduced window of 16, in prefill and decode
+    for arch in ("qwen3-0.6b", DENSE_ARCH, "h2o-danube-1.8b",
+                 "jamba-v0.1-52b", "kimi-k2-1t-a32b"):
+        timed(f"reduced_{arch}", phase_reduced_server, dev, arch, 20)
+    for arch in ("paligemma-3b", "whisper-base"):
+        timed(f"reduced_{arch}", phase_reduced_prefill_decode, dev, arch)
     fleet_res, fleet_launches = timed("main_path", phase_main_path, dev)
     kernels = [_market_clear_entry(fleet_res, fleet_launches)]
     timed("fig06_scale", phase_fig06_scale, dev, fleet_res)
@@ -1685,13 +1939,56 @@ def main() -> None:
     timed("recovery", phase_recovery, dev, *storm)
     timed("event_path", phase_event_path, dev, storm[0])
     rep, launches = timed("serve_olmoe", phase_serve, dev, SERVE_ARCH)
-    kernels += [_decode_attention_entry(rep, launches),
-                _moe_route_entry(rep, launches, dev)]
+    decode = _decode_attention_entry(rep, launches)
+    kernels += [decode, _moe_route_entry(rep, launches, dev)]
     del rep                    # free OLMoE before the next path's peak
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     rep, launches = timed("serve_mamba2", phase_serve, dev, SSM_ARCH)
     kernels.append(_ssd_scan_entry(rep, launches, ssd_measured))
+    del rep
+    _release()
+    # this slice's main path: gemma3-27b at full width; 52 of its 62
+    # layers attend within a window of 1,024 at every decode position
+    rep, launches = timed("serve_gemma3", phase_serve, dev, DENSE_ARCH)
+    cfg = rep.cfg
+    blk = rep.server.cache["blocks"][0]          # a local (windowed) layer
+    _decode_path_entry(decode, cfg.name, launches, blk["k"], blk["v"],
+                       cfg.num_heads // cfg.num_kv_heads,
+                       SERVE_FULL["prompt_len"] + SERVE_FULL["max_new"] - 2,
+                       cfg.layer_plan()[0].window)
+    del rep, blk
+    _release()
+    rep, launches = timed("serve_qwen3", phase_serve, dev, "qwen3-0.6b")
+    decode["launches_by_path"][rep.cfg.name] = launches["decode_attention"]
+    del rep
+    _release()
+    rep, launches = timed("serve_danube", phase_serve, dev,
+                          "h2o-danube-1.8b", DANUBE_SERVE)
+    cfg = rep.cfg
+    blk = rep.server.cache["blocks"][0]
+    _decode_path_entry(decode, cfg.name, launches, blk["k"], blk["v"],
+                       cfg.num_heads // cfg.num_kv_heads,
+                       DANUBE_SERVE["prompt_len"] + DANUBE_SERVE["max_new"]
+                       - 2, cfg.sliding_window)
+    del rep, blk
+    _release()
+    steps = FRONTEND_FULL["steps"]
+    cfg, cache, launches = timed("prefill_decode_paligemma",
+                                 phase_prefill_decode, dev, "paligemma-3b")
+    blk = cache["blocks"][0]
+    _decode_path_entry(decode, cfg.name, launches, blk["k"], blk["v"],
+                       cfg.num_heads // cfg.num_kv_heads,
+                       blk["k"].shape[2] - 1, 0)
+    del cache, blk
+    _release()
+    cfg, cache, launches = timed("prefill_decode_whisper",
+                                 phase_prefill_decode, dev, "whisper-base")
+    blk = cache["blocks"][0]                     # cross K/V: every frame
+    _decode_path_entry(decode, cfg.name, launches, blk["cross_k"],
+                       blk["cross_v"], cfg.num_heads // cfg.num_kv_heads,
+                       blk["cross_k"].shape[2] - 1, 0)
+    del cache, blk
+    _release()
     emit({"kernels": kernels})
     emit({"phase": "done", "card": card, "phase_s": phase_s,
           "total_s": round(time.perf_counter() - t0, 3)})

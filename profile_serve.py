@@ -3,7 +3,8 @@
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
-    python3 profile_serve.py [--arch olmoe-1b-7b | mamba2-780m]
+    python3 profile_serve.py [--arch olmoe-1b-7b | mamba2-780m |
+                              gemma3-27b | qwen3-0.6b | h2o-danube-1.8b]
 
 Serves ``chip_smoke.py``'s serving main path once (the arch, default
 ``olmoe-1b-7b``, at full width, bfloat16, 8 requests of 1,024-token
@@ -13,10 +14,10 @@ prompts, 32 new tokens, 4 slots) to warm up, then, on the same server:
 2. ``torch.profiler`` over 5 decode ticks with all 4 slots busy;
 
 and reports for each the wall time, the device's busy share, the kernel
-launches (and those of the model kernels: the decode and router kernels
-for OLMoE, the SSD scan's three passes for mamba2), the device time of
-each of those kernels, and the top operations by device and by host
-time.  Prints one JSON line per result
+launches (and those of the model kernels: the decode kernel, the router
+kernel for OLMoE, the SSD scan's three passes for mamba2), the device
+time of each of those kernels, and the top operations by device and by
+host time.  Prints one JSON line per result
 and writes them to ``chiprun_out/profile_serve-<arch>.jsonl``.  Needs
 CUDA; it never runs on the CPU.
 """
@@ -29,7 +30,7 @@ import subprocess
 import sys
 import time
 
-from chip_smoke import SERVE_ARCH, SERVE_FULL, SSM_ARCH
+from chip_smoke import DENSE_ARCH, SERVE_ARCH, SERVE_FULL, SSM_ARCH
 from profile_epoch import _event_device_us, summarize
 
 HERE = pathlib.Path(__file__).resolve().parent
@@ -59,7 +60,8 @@ def _profiled(fn, dev):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=SERVE_ARCH,
-                    choices=(SERVE_ARCH, SSM_ARCH))
+                    choices=(SERVE_ARCH, SSM_ARCH, DENSE_ARCH, "qwen3-0.6b",
+                             "h2o-danube-1.8b"))
     arch = ap.parse_args().arch
     import numpy as np
     import torch

@@ -1,15 +1,24 @@
 """Architecture registry: ``get_config("<arch-id>")`` / ``--arch <id>``.
 
-It holds the architectures the port serves; later slices add theirs."""
+It holds the reference's ten architectures.  Five fit one 80 GB card in
+bfloat16 and are served at full width; ``jamba-v0.1-52b``,
+``llama3-405b`` and ``kimi-k2-1t-a32b`` do not (``param_counts``) and
+run reduced."""
 from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.configs import mamba2_780m, olmoe_1b_7b
+from repro_torch.configs import (gemma3_27b, h2o_danube_1_8b, jamba_v0_1_52b,
+                                 kimi_k2_1t_a32b, llama3_405b, mamba2_780m,
+                                 olmoe_1b_7b, paligemma_3b, qwen3_0_6b,
+                                 whisper_base)
 from repro_torch.configs.base import ArchConfig, LayerSpec
 
-ARCHS: Dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG
-                                for m in (olmoe_1b_7b, mamba2_780m)}
+_MODULES = [jamba_v0_1_52b, olmoe_1b_7b, kimi_k2_1t_a32b, gemma3_27b,
+            llama3_405b, h2o_danube_1_8b, qwen3_0_6b, paligemma_3b,
+            mamba2_780m, whisper_base]
+
+ARCHS: Dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -1,12 +1,15 @@
 """Architecture configuration, a trimmed copy of ``repro.configs.base``.
 
-It keeps the fields and methods that the serving path of the port's
-architectures reads (``layer_plan``, ``plan_blocks``, ``reduced``), with
-the reference's defaults, so that a config built here and one built
-there describe the same model.  Shape tables, parameter counts and the
-encoder and sharding fields wait for the slices that use them;
-``ssd_compute_dtype`` is left out (a TPU tuning knob that no config
-sets; the port's scan computes in float32, its default).
+It keeps the fields and methods that the serving paths of the port's
+architectures read (``layer_plan``, ``encoder_plan``, ``plan_blocks``,
+``param_counts``, ``reduced``), with the reference's defaults, so that
+a config built here and one built there describe the same model.
+Left out, with the code that reads them: ``capacity_factor`` (the
+expert-parallel MoE), ``opt_dtype`` and the ``remat`` knobs (training),
+the shape tables and ``applicable_shapes`` (``launch/``), and
+``ssd_compute_dtype`` (a TPU tuning knob that no config sets; the
+port's scan computes in float32, its default).  A config copied from
+the reference drops any field the port lacks (kimi's ``opt_dtype``).
 """
 from __future__ import annotations
 
@@ -60,6 +63,11 @@ class ArchConfig:
     ssm_chunk: int = 256
     ssm_conv: int = 4
 
+    enc_dec: bool = False
+    num_encoder_layers: int = 0
+    frontend: str = ""             # "" | "vision_stub" | "audio_stub"
+    num_prefix_tokens: int = 0     # vlm: image patches; audio: frames
+
     param_dtype: str = "bfloat16"
     attn_softmax_dtype: str = "float32"
 
@@ -101,6 +109,10 @@ class ArchConfig:
             plan.append(LayerSpec(kind=kind, moe=moe, window=window))
         return plan
 
+    def encoder_plan(self) -> List[LayerSpec]:
+        return [LayerSpec(kind="attn", moe=False, window=0)
+                for _ in range(self.num_encoder_layers)]
+
     def plan_blocks(self) -> Tuple[int, int, int, int]:
         """(head, period, n_super, tail): ``head`` leading layers, then
         ``n_super`` repetitions of a ``period``-layer superblock (stacked
@@ -116,6 +128,47 @@ class ArchConfig:
         n_super = len(rest) // p if p else 0
         tail = len(rest) - n_super * p
         return head, p, n_super, tail
+
+    def param_counts(self) -> Tuple[int, int]:
+        """(total_params, active_params); active counts the top-k
+        experts only."""
+        D, V = self.d_model, self.vocab_size
+        total = V * D * (1 if self.tie_embeddings else 2)
+        active = total
+
+        def attn_params():
+            qk = D * self.num_heads * self.head_dim
+            kv = D * self.num_kv_heads * self.head_dim
+            return qk * 2 + kv * 2  # wq, wo, wk, wv
+
+        def mlp_params(ff):
+            n = 3 if self.mlp_type == "swiglu" else 2
+            return n * D * ff
+
+        def ssm_params():
+            din, N, H = self.d_inner, self.ssm_state, self.ssm_heads
+            in_p = D * (2 * din + 2 * N + H)
+            conv = self.ssm_conv * (din + 2 * N)
+            return in_p + conv + 3 * H + din + din * D
+        enc = self.encoder_plan() if self.enc_dec else []
+        for spec in self.layer_plan() + enc:
+            mixer = attn_params() if spec.kind == "attn" else ssm_params()
+            total += mixer
+            active += mixer
+            if spec.moe:
+                per_exp = mlp_params(self.moe_d_ff)
+                total += self.num_experts * per_exp + D * self.num_experts
+                active += (self.num_experts_per_tok * per_exp
+                           + D * self.num_experts)
+            elif self.d_ff:
+                total += mlp_params(self.d_ff)
+                active += mlp_params(self.d_ff)
+        if self.enc_dec:  # decoder cross-attention blocks
+            ca = (D * self.num_heads * self.head_dim) * 2 \
+                + (D * self.num_kv_heads * self.head_dim) * 2
+            total += self.num_layers * ca
+            active += self.num_layers * ca
+        return total, active
 
     def reduced(self, **overrides) -> "ArchConfig":
         """A test-sized config of the same family: the reference's
@@ -135,6 +188,8 @@ class ArchConfig:
             ssm_state=16 if self.ssm_state else 0,
             ssm_headdim=16 if self.ssm_state else 64,
             ssm_chunk=16,
+            num_encoder_layers=2 if self.enc_dec else 0,
+            num_prefix_tokens=8 if self.num_prefix_tokens else 0,
             sliding_window=16 if self.sliding_window else 0,
             param_dtype="float32",
         )

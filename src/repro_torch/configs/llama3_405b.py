@@ -1,0 +1,21 @@
+"""llama3-405b — dense GQA transformer.
+
+[arXiv:2407.21783; unverified]  126L d_model=16384 128H (GQA kv=8)
+d_ff=53248 vocab=128256, full attention, RoPE theta 500k.
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="llama3-405b",
+    family="dense",
+    source="[arXiv:2407.21783; unverified]",
+    num_layers=126,
+    d_model=16384,
+    num_heads=128,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=53248,
+    vocab_size=128256,
+    rope_theta=500_000.0,
+    tie_embeddings=False,
+)

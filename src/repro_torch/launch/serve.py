@@ -1,11 +1,13 @@
 """Serving launcher of the port: ``python -m repro_torch.launch.serve
---arch <id> [--full]``, twin of ``repro.launch.serve``.
+--arch <id> [--full] [--device cpu]``, twin of ``repro.launch.serve``.
 
 Batched prefill + decode with fixed slots (continuous-batching-lite),
 with random weights from ``torch.Generator`` seed 0 and prompts from
 numpy seed 0.  Without ``--full`` the reduced config of the arch family
 is served.  It runs on the card; ``serve(..., device="cpu")`` runs the
-plain versions on the CPU.
+plain versions on the CPU.  Every text-only architecture is served; a
+frontend architecture (``paligemma-3b``, ``whisper-base``) raises
+``ValueError``, as the reference's server cannot feed it either.
 
 ``serve`` drives the server tick by tick and synchronises after each
 tick, so that it can report time to first token, decode time per step
@@ -26,7 +28,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import init_params
-from repro_torch.serve.server import Request, Server
+from repro_torch.serve.server import Request, Server, check_servable
 
 
 @dataclass
@@ -38,6 +40,8 @@ class ServeReport:
     prefills: int
     decode_steps: int
     wall_s: float                     # submit to the last token
+    init_s: float = 0.0               # random init, when serve drew it
+    init_peak_bytes: int = 0          # the card's peak after that init
     tick_s: List[float] = field(default_factory=list)
     tick_fills: List[int] = field(default_factory=list)
     ttft_s: Dict[int, float] = field(default_factory=dict)   # rid -> s
@@ -76,16 +80,26 @@ def serve(arch: str, *, requests: int = 6, prompt_len: int = 16,
           cfg: Optional[ArchConfig] = None) -> ServeReport:
     """Serve ``requests`` random prompts and return what happened.
     ``params``/``cfg`` override the random weights and the config (the
-    tests pass the reference's weights carried across)."""
+    tests pass the reference's weights carried across).  When ``serve``
+    draws the weights on CUDA, the report's ``init_peak_bytes`` is the
+    device's peak allocation after the init: the init's own peak when
+    the caller reset the peak statistics just before."""
     dev = resolve_device(device)
     if cfg is None:
         cfg = get_config(arch)
         if not full:
             cfg = cfg.reduced()
+    check_servable(cfg)
+    init_s, init_peak = 0.0, 0
     if params is None:
+        t_init = time.perf_counter()
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         params = init_params(cfg, gen, device=dev)
+        _sync(dev)
+        init_s = time.perf_counter() - t_init
+        if dev.type == "cuda":
+            init_peak = torch.cuda.max_memory_allocated(dev)
     srv = Server(cfg, params, max_len=prompt_len + max_new + 8,
                  batch_slots=slots, device=dev)
     rng = np.random.default_rng(0)
@@ -99,7 +113,8 @@ def serve(arch: str, *, requests: int = 6, prompt_len: int = 16,
     for r in reqs:
         srv.submit(r)
     rep = ServeReport(cfg=cfg, server=srv, requests=reqs, served=0,
-                      prefills=0, decode_steps=0, wall_s=0.0)
+                      prefills=0, decode_steps=0, wall_s=0.0, init_s=init_s,
+                      init_peak_bytes=init_peak)
     seen = set()
     prev = t0
     while srv.queue or any(srv.slots):
@@ -130,10 +145,12 @@ def main() -> None:
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--slots", type=int, default=2)
     ap.add_argument("--full", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="default: cuda; cpu runs the plain versions")
     args = ap.parse_args()
     rep = serve(args.arch, requests=args.requests,
                 prompt_len=args.prompt_len, max_new=args.max_new,
-                slots=args.slots, full=args.full)
+                slots=args.slots, full=args.full, device=args.device)
     print(f"served {rep.served}/{len(rep.requests)} requests "
           f"({args.max_new} tokens each, {args.slots} slots)")
 

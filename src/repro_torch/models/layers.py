@@ -1,25 +1,30 @@
 """Layer library of the port, twin of ``repro.models.layers`` for the
-layers the serving paths of ``olmoe-1b-7b`` and ``mamba2-780m`` run.
+layers the serving paths run: attention (GQA / MQA, sliding window,
+prefix-LM, cross-attention), the dense MLP, the MoE layer and the
+Mamba2 (SSD) block.
 
 Functions keep the reference's names, arguments and layouts.  Three of
 them reach the port's kernels: ``attention_decode`` calls
 ``kernels.decode_attention.ops.decode_attention`` for its attention
-core, ``moe_dense`` takes its top-k and its dense combine weights from
-``kernels.moe_route.ops.route_dense`` (one launch) and
-``ssd_block`` calls ``kernels.ssd_scan.ops.ssd_scan`` (the CUDA kernels
-on CUDA tensors, their plain versions on CPU tensors).  Prefill
-attention, the projections, the causal conv and the one-token SSM
-recurrence (``ssd_decode``, pure jnp in the reference) stay plain
-PyTorch, as the reference left them to XLA.
+core (self- and cross-attention alike), ``moe_dense`` takes its top-k
+and its dense combine weights from ``kernels.moe_route.ops.route_dense``
+(one launch) and ``ssd_block`` calls ``kernels.ssd_scan.ops.ssd_scan``
+(the CUDA kernels on CUDA tensors, their plain versions on CPU tensors).
+Prefill attention, the projections, the MLPs, the causal conv and the
+one-token SSM recurrence (``ssd_decode``, pure jnp in the reference)
+stay plain PyTorch, as the reference left them to XLA.
 
 JAX promotes mixed float types at a product (``bf16 @ f32`` is an f32
 product); PyTorch raises instead, so the casts JAX applies silently are
 written out here (the router's logits, ``moe_dense``'s combine weights,
 ``rms_norm``'s f32 compute, the SSM blocks' float32 terms).
+``jax.nn.gelu`` is the tanh approximation by default, and
+``torch.nn.functional.gelu`` the exact erf form: ``mlp`` asks for the
+tanh form.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -82,26 +87,39 @@ def _attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
 
 def attention(p: Dict[str, torch.Tensor], cfg: ArchConfig, x: torch.Tensor,
               positions: torch.Tensor, *, window: int = 0,
-              prefix_len: int = 0, causal: bool = True,
-              return_kv: bool = False):
-    """Full-sequence self-attention (prefill).  x: (B, S, D)."""
+              prefix_len: int = 0,
+              kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              causal: bool = True, return_kv: bool = False):
+    """Full-sequence attention (prefill, the encoder, cross-attention).
+
+    x: (B, S, D).  kv_override: use these (B, Sk, K, hd) tensors as K/V
+    (cross-attention: only q is normed, no rope, key positions
+    0..Sk-1); otherwise K/V are projected from x."""
     B, S, D = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // K
     q = (x @ p["wq"]).reshape(B, S, K, G, hd)
-    k = (x @ p["wk"]).reshape(B, S, K, hd)
-    v = (x @ p["wv"]).reshape(B, S, K, hd)
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
-    if cfg.use_rope:
-        q = rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta) \
-            .reshape(B, S, K, G, hd)
-        k = rope(k, positions, cfg.rope_theta)
+    if kv_override is None:
+        k = (x @ p["wk"]).reshape(B, S, K, hd)
+        v = (x @ p["wv"]).reshape(B, S, K, hd)
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"])
+            k = rms_norm(k, p["k_norm"])
+        if cfg.use_rope:
+            q = rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta) \
+                .reshape(B, S, K, G, hd)
+            k = rope(k, positions, cfg.rope_theta)
+        k_pos = positions
+    else:
+        k, v = kv_override
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"])
+        k_pos = torch.arange(k.shape[1], device=x.device).expand(
+            B, k.shape[1])
     scale = hd ** -0.5
     sm_dt = getattr(torch, cfg.attn_softmax_dtype)
     scores = torch.einsum("bskgh,btkh->bkgst", q, k) * scale
-    mask = _attn_mask(positions, positions, window, prefix_len, causal)
+    mask = _attn_mask(positions, k_pos, window, prefix_len, causal)
     scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
     probs = torch.softmax(scores.to(sm_dt), dim=-1).to(x.dtype)
     out = torch.einsum("bkgst,btkh->bskgh", probs, v).reshape(B, S, H * hd)
@@ -113,20 +131,34 @@ def attention(p: Dict[str, torch.Tensor], cfg: ArchConfig, x: torch.Tensor,
 
 def attention_decode(p: Dict[str, torch.Tensor], cfg: ArchConfig,
                      x: torch.Tensor, cache_k: torch.Tensor,
-                     cache_v: torch.Tensor, pos: int, *, window: int = 0):
-    """Single-token self-attention decode.  x: (B, 1, D); cache:
-    (B, Smax, K, hd); pos: host int, the index where the new token's K/V
-    is written.  The cache is updated IN PLACE (the reference returns an
-    updated copy); the same tensors are returned.  The attention core is
-    the decode kernel, whose contract (``decode_attention_ref``) keeps the
-    probabilities in float32 up to the value product; the reference's
-    inline version casts them to x's dtype first, which agrees to
-    rounding in float32 and within the kernel tolerance in bfloat16.
-    Returns (out, cache_k, cache_v)."""
+                     cache_v: torch.Tensor, pos: int, *, window: int = 0,
+                     cross_kv: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None):
+    """Single-token decode.  x: (B, 1, D); cache: (B, Smax, K, hd); pos:
+    host int, the index where the new token's K/V is written.  The cache
+    is updated IN PLACE (the reference returns an updated copy); the
+    same tensors are returned.  The attention core is the decode kernel,
+    whose contract (``decode_attention_ref``) keeps the probabilities in
+    float32 up to the value product; the reference's inline version
+    casts them to x's dtype first, which agrees to rounding in float32
+    and within the kernel tolerance in bfloat16.
+
+    For cross-attention (the whisper decoder) pass ``cross_kv``: no
+    cache is written, no rope or k norm applied, and every one of its Sk
+    keys is valid, so the kernel attends at position Sk - 1 with no
+    window (the reference's all-true mask).  Returns (out, cache_k,
+    cache_v)."""
     B, _, D = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // K
     q = (x @ p["wq"]).reshape(B, 1, K, G, hd)
+    if cross_kv is not None:
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"])
+        keys, vals = cross_kv
+        out = decode_ops.decode_attention(q.reshape(B, K, G, hd), keys,
+                                          vals, keys.shape[1] - 1, 0)
+        return out.reshape(B, 1, H * hd) @ p["wo"], cache_k, cache_v
     k = (x @ p["wk"]).reshape(B, 1, K, hd)
     v = (x @ p["wv"]).reshape(B, 1, K, hd)
     if cfg.qk_norm:
@@ -142,6 +174,18 @@ def attention_decode(p: Dict[str, torch.Tensor], cfg: ArchConfig,
     out = decode_ops.decode_attention(q.reshape(B, K, G, hd), cache_k,
                                       cache_v, pos, window)
     return out.reshape(B, 1, H * hd) @ p["wo"], cache_k, cache_v
+
+
+# --------------------------------------------------------------------------
+# Dense MLP
+# --------------------------------------------------------------------------
+def mlp(p: Dict[str, torch.Tensor], cfg: ArchConfig,
+        x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU, or GELU in ``jax.nn.gelu``'s default tanh form (the erf
+    form differs from it by up to 4.7e-4)."""
+    if cfg.mlp_type == "swiglu":
+        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    return F.gelu(x @ p["wi"], approximate="tanh") @ p["wo_mlp"]
 
 
 # --------------------------------------------------------------------------

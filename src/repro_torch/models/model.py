@@ -1,6 +1,7 @@
 """Model assembly of the port, twin of ``repro.models.model`` for the
-serving path: parameter init, the unrolled forward, prefill, one decode
-step, and the cache layout.
+serving path: parameter init, the unrolled forward (with the vision
+prefix and the audio encoder), prefill, one decode step, and the cache
+layout.
 
 Parameters are plain dicts of tensors in the reference's layout::
 
@@ -10,19 +11,20 @@ Parameters are plain dicts of tensors in the reference's layout::
       "blocks": [j in 0..period) dicts of tensors stacked on a leading
                  n_super axis]
       "tail":   [per-layer dicts]            # partial trailing period
+      ["enc_blocks": [the encoder's layers stacked], "enc_final_norm"]
     }
 
 so ``convert.model_params_from_jax`` carries the reference's
 ``init_params`` tree across unchanged.  Caches use the same
-head/blocks/tail layout: K/V for an attention layer, the conv window
-and the float32 SSM state for an SSD layer.  The layers run unrolled
-(the reference's ``scan_layers=False``); decode updates the cache in
-place.
+head/blocks/tail layout: K/V for an attention layer (and the encoder's
+cross-attention K/V for an encoder-decoder), the conv window and the
+float32 SSM state for an SSD layer.  The layers run unrolled (the
+reference's ``scan_layers=False``); decode updates the cache in place.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -51,6 +53,27 @@ def _slice(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
 # --------------------------------------------------------------------------
 # Parameter init (the reference's shapes, scales and dtypes)
 # --------------------------------------------------------------------------
+class _Dense:
+    """A random matrix not drawn yet: the layer builders return these,
+    and ``draw`` makes each one when its place is ready, so that at most
+    one float32 draw exists beside the parameters."""
+
+    def __init__(self, ini: "_Init", shape, dtype, scale):
+        self.ini, self.shape, self.dtype, self.scale = ini, shape, dtype, \
+            scale
+
+    def draw(self, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Draw on the generator's device in float32 and scale in place;
+        return it as a new tensor of the parameter dtype on the target
+        device, or write it into ``out`` (a row of a stacked leaf)."""
+        gen = self.ini.gen
+        x = torch.randn(self.shape, generator=gen, dtype=torch.float32,
+                        device=gen.device).mul_(self.scale)
+        if out is None:
+            return x.to(device=self.ini.device, dtype=self.dtype)
+        return out.copy_(x)
+
+
 class _Init:
     def __init__(self, gen: torch.Generator, device: torch.device):
         self.gen = gen
@@ -59,12 +82,49 @@ class _Init:
     def norm(self, d):
         return torch.zeros((d,), dtype=torch.float32, device=self.device)
 
-    def dense(self, shape, dtype, scale=None):
+    def dense(self, shape, dtype, scale=None) -> _Dense:
         fan_in = shape[-2] if len(shape) >= 2 else shape[0]
         scale = scale if scale is not None else fan_in ** -0.5
-        x = torch.randn(shape, generator=self.gen, dtype=torch.float32,
-                        device=self.gen.device)
-        return (x * scale).to(device=self.device, dtype=dtype)
+        return _Dense(self, tuple(shape), dtype, scale)
+
+
+def _materialize(tree):
+    """Draw every ``_Dense`` leaf of a layer tree, in the tree's order."""
+    if isinstance(tree, dict):
+        return {k: _materialize(v) for k, v in tree.items()}
+    return tree.draw() if isinstance(tree, _Dense) else tree
+
+
+def _empty_stack(tree, n: int, device: torch.device):
+    """Uninitialised stacked leaves (leading axis ``n``) for a layer
+    tree's shapes and dtypes."""
+    if isinstance(tree, dict):
+        return {k: _empty_stack(v, n, device) for k, v in tree.items()}
+    return torch.empty((n,) + tuple(tree.shape), dtype=tree.dtype,
+                       device=device)
+
+
+def _fill_row(stack, tree, s: int) -> None:
+    """Write one layer tree into row ``s`` of its stacked leaves."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _fill_row(stack[k], v, s)
+        elif isinstance(v, _Dense):
+            v.draw(out=stack[k][s])
+        else:
+            stack[k][s].copy_(v)
+
+
+def _stacked(build, n: int, device: torch.device):
+    """``n`` layers from ``build(s)`` stacked on a leading axis, each
+    leaf drawn straight into its row: the stack is allocated once and no
+    layer is ever held beside it."""
+    first = build(0)
+    stack = _empty_stack(first, n, device)
+    _fill_row(stack, first, 0)
+    for s in range(1, n):
+        _fill_row(stack, build(s), s)
+    return stack
 
 
 def _attn_params(cfg: ArchConfig, ini: _Init, dt):
@@ -80,6 +140,17 @@ def _attn_params(cfg: ArchConfig, ini: _Init, dt):
         p["q_norm"] = ini.norm(hd)
         p["k_norm"] = ini.norm(hd)
     return p
+
+
+def _mlp_params(cfg: ArchConfig, ini: _Init, dt, ff):
+    D = cfg.d_model
+    out_scale = ff ** -0.5 / (2 * cfg.num_layers) ** 0.5
+    if cfg.mlp_type == "swiglu":
+        return {"wg": ini.dense((D, ff), dt),
+                "wu": ini.dense((D, ff), dt),
+                "wd": ini.dense((ff, D), dt, scale=out_scale)}
+    return {"wi": ini.dense((D, ff), dt),
+            "wo_mlp": ini.dense((ff, D), dt, scale=out_scale)}
 
 
 def _moe_params(cfg: ArchConfig, ini: _Init, dt):
@@ -129,17 +200,25 @@ def _ssm_params(cfg: ArchConfig, ini: _Init, dt):
     }
 
 
-def _layer_params(cfg: ArchConfig, spec: LayerSpec, ini: _Init, dt):
-    if not spec.moe and cfg.d_ff:
-        raise NotImplementedError(f"{cfg.name}: dense MLP is not ported yet")
+def _layer_params(cfg: ArchConfig, spec: LayerSpec, ini: _Init, dt,
+                  cross: bool = False):
+    """One layer's tree (random matrices not drawn yet): the mixer, the
+    decoder's cross-attention when ``cross``, then the MoE or the dense
+    MLP."""
     p: Dict[str, Any] = {"ln1": ini.norm(cfg.d_model)}
     if spec.kind == "attn":
         p["attn"] = _attn_params(cfg, ini, dt)
     else:
         p["ssm"] = _ssm_params(cfg, ini, dt)
+    if cross:
+        p["ln_x"] = ini.norm(cfg.d_model)
+        p["cross"] = _attn_params(cfg, ini, dt)
     if spec.moe:
         p["ln2"] = ini.norm(cfg.d_model)
         p["moe"] = _moe_params(cfg, ini, dt)
+    elif cfg.d_ff:
+        p["ln2"] = ini.norm(cfg.d_model)
+        p["mlp"] = _mlp_params(cfg, ini, dt, cfg.d_ff)
     return p
 
 
@@ -148,38 +227,68 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     """Random parameters with the reference's shapes, scales and dtypes,
     drawn from ``gen`` (on ``gen``'s device, then moved to ``device``).
     The numbers differ from the reference's ``jax.random`` draws; tests
-    carry the reference's own parameters across instead."""
+    carry the reference's own parameters across instead.
+
+    Every matrix is drawn in float32 and cast into its place, and a
+    stacked leaf is allocated once and filled row by row, so the peak is
+    the parameters plus one float32 draw (at full width the largest is
+    the embedding's)."""
     dev = resolve_device(device)
     ini = _Init(gen, dev)
     dt = _dtype(cfg)
     plan = cfg.layer_plan()
     head, p, n_super, tail = cfg.plan_blocks()
+
+    def layer(i):
+        return _materialize(_layer_params(cfg, plan[i], ini, dt,
+                                          cross=cfg.enc_dec))
+
+    def stacked(j):
+        return _stacked(lambda s: _layer_params(
+            cfg, plan[head + s * p + j], ini, dt, cross=cfg.enc_dec),
+            n_super, dev)
     params: Params = {"embed": ini.dense((cfg.vocab_size, cfg.d_model), dt,
-                                         0.02),
+                                         0.02).draw(),
                       "final_norm": ini.norm(cfg.d_model)}
-    per_layer = [_layer_params(cfg, spec, ini, dt) for spec in plan]
-    params["head"] = per_layer[:head]
-    params["blocks"] = [_stack([per_layer[head + s * p + j]
-                                for s in range(n_super)])
-                        for j in range(p)] if n_super else []
-    params["tail"] = per_layer[head + n_super * p:]
-    del per_layer
+    params["head"] = [layer(i) for i in range(head)]
+    params["blocks"] = [stacked(j) for j in range(p)] if n_super else []
+    params["tail"] = [layer(head + n_super * p + t) for t in range(tail)]
     if not cfg.tie_embeddings:
-        params["lm_head"] = ini.dense((cfg.d_model, cfg.vocab_size), dt, 0.02)
+        params["lm_head"] = ini.dense((cfg.d_model, cfg.vocab_size), dt,
+                                      0.02).draw()
+    if cfg.enc_dec:
+        eplan = cfg.encoder_plan()
+        params["enc_blocks"] = [_stacked(
+            lambda s: _layer_params(cfg, eplan[s], ini, dt), len(eplan),
+            dev)] if eplan else []
+        params["enc_final_norm"] = ini.norm(cfg.d_model)
     return params
 
 
 # --------------------------------------------------------------------------
-# One layer, the stack, forward
+# One layer, the stack, the encoder, forward
 # --------------------------------------------------------------------------
+def _ffn(p, cfg: ArchConfig, spec: LayerSpec, x):
+    """The layer's MoE or dense MLP on the normed residual, or None."""
+    if spec.moe:
+        return L.moe_dense(p["moe"], cfg, L.rms_norm(x, p["ln2"]))
+    if cfg.d_ff:
+        return L.mlp(p["mlp"], cfg, L.rms_norm(x, p["ln2"]))
+    return None
+
+
 def _apply_layer(p, cfg: ArchConfig, spec: LayerSpec, x, positions, *,
-                 collect: bool = False, max_len: int = 0):
+                 prefix_len: int = 0, enc_out: Optional[torch.Tensor] = None,
+                 causal: bool = True, collect: bool = False,
+                 max_len: int = 0):
     """Returns (x, cache_entry|None)."""
+    B = x.shape[0]
     entry = None
     h = L.rms_norm(x, p["ln1"])
     if spec.kind == "attn":
         out, (k, v) = L.attention(p["attn"], cfg, h, positions,
-                                  window=spec.window, return_kv=True)
+                                  window=spec.window, prefix_len=prefix_len,
+                                  causal=causal, return_kv=True)
         if collect:
             pad = max(0, max_len - k.shape[1])
             entry = {"k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)),
@@ -189,8 +298,18 @@ def _apply_layer(p, cfg: ArchConfig, spec: LayerSpec, x, positions, *,
         if collect:
             entry = {"conv": conv_tail, "ssm": ssm_state}
     x = x + out
-    if spec.moe:
-        x = x + L.moe_dense(p["moe"], cfg, L.rms_norm(x, p["ln2"]))
+    if enc_out is not None and "cross" in p:
+        K, hd = cfg.num_kv_heads, cfg.head_dim
+        ckv = ((enc_out @ p["cross"]["wk"]).reshape(B, -1, K, hd),
+               (enc_out @ p["cross"]["wv"]).reshape(B, -1, K, hd))
+        h = L.rms_norm(x, p["ln_x"])
+        x = x + L.attention(p["cross"], cfg, h, positions, kv_override=ckv,
+                            causal=False)
+        if collect:
+            entry["cross_k"], entry["cross_v"] = ckv
+    f = _ffn(p, cfg, spec, x)
+    if f is not None:
+        x = x + f
     return x, entry
 
 
@@ -200,15 +319,17 @@ def _period_specs(cfg: ArchConfig):
     return plan, head, p, n_super, tail
 
 
-def _run_stack(params, cfg, x, positions, *, collect, max_len):
+def _run_stack(params, cfg, x, positions, *, prefix_len, enc_out, collect,
+               max_len):
     """Head + unrolled superblocks + tail.  Returns (x, caches dict with
     head/blocks/tail lists)."""
     plan, head, p, n_super, tail = _period_specs(cfg)
     caches: Dict[str, Any] = {"head": [], "blocks": [], "tail": []}
 
     def one(lp, spec, xx):
-        return _apply_layer(lp, cfg, spec, xx, positions, collect=collect,
-                            max_len=max_len)
+        return _apply_layer(lp, cfg, spec, xx, positions,
+                            prefix_len=prefix_len, enc_out=enc_out,
+                            collect=collect, max_len=max_len)
 
     for i in range(head):
         x, e = one(params["head"][i], plan[i], x)
@@ -228,6 +349,21 @@ def _run_stack(params, cfg, x, positions, *, collect, max_len):
     return x, caches
 
 
+def _encoder_forward(params, cfg: ArchConfig, enc_embeds: torch.Tensor):
+    """The audio encoder: bidirectional layers over the frame
+    embeddings, then its final norm."""
+    x = enc_embeds.to(_dtype(cfg))
+    B, S, _ = x.shape
+    eplan = cfg.encoder_plan()
+    if not eplan:
+        return x
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    for i, spec in enumerate(eplan):
+        x, _ = _apply_layer(_slice(params["enc_blocks"][0], i), cfg, spec, x,
+                            positions, causal=False)
+    return L.rms_norm(x, params["enc_final_norm"])
+
+
 def _logits(params, cfg, x):
     x = L.rms_norm(x, params["final_norm"])
     head_w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -236,11 +372,26 @@ def _logits(params, cfg, x):
 
 def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             *, collect_cache: bool = False, max_len: int = 0):
+    """Logits (B, S_total, V) and, with ``collect_cache``, the caches.
+    ``batch`` holds ``tokens`` (B, S) and, for a frontend architecture,
+    ``prefix_embeds`` (B, P, D; vision: prepended, attended both ways)
+    or ``encoder_embeds`` (B, frames, D; audio: the encoder's input)."""
+    dt = _dtype(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = params["embed"][tokens.long()].to(_dtype(cfg))
-    positions = torch.arange(S, device=x.device).expand(B, S)
-    x, caches = _run_stack(params, cfg, x, positions, collect=collect_cache,
+    x = params["embed"][tokens.long()].to(dt)
+    prefix_len = 0
+    enc_out = None
+    if cfg.frontend == "vision_stub":
+        pe = batch["prefix_embeds"].to(dt)
+        x = torch.cat([pe, x], dim=1)
+        prefix_len = pe.shape[1]
+    elif cfg.frontend == "audio_stub":
+        enc_out = _encoder_forward(params, cfg, batch["encoder_embeds"])
+    St = x.shape[1]
+    positions = torch.arange(St, device=x.device).expand(B, St)
+    x, caches = _run_stack(params, cfg, x, positions, prefix_len=prefix_len,
+                           enc_out=enc_out, collect=collect_cache,
                            max_len=max_len)
     return _logits(params, cfg, x), (caches if collect_cache else None)
 
@@ -258,8 +409,16 @@ def decode_step(params: Params, cfg: ArchConfig, cache, tokens: torch.Tensor,
                 pos: int):
     """One decode step.  tokens: (B, 1); pos: host int, the index where
     the new token's KV is written; attends to cache[<= pos] (an SSD layer
-    reads only its conv window and state).  The cache is updated in place
-    and returned."""
+    reads only its conv window and state; a decoder's cross-attention
+    reads all of the encoder's K/V).  The cache is updated in place and
+    returned.
+
+    The layers run in depth order, as ``forward`` runs them.  The
+    reference's ``decode_step`` loops over the period position outside
+    the superblock, which is depth order only when the period or the
+    superblock count is 1; with both above 1 (gemma3-27b: 6 x 10) it
+    applies the layers out of order and disagrees with its own forward
+    (ROADMAP Queue 3)."""
     x = params["embed"][tokens.long()].to(_dtype(cfg))
     plan, head, p, n_super, tail = _period_specs(cfg)
 
@@ -275,14 +434,19 @@ def decode_step(params: Params, cfg: ArchConfig, cache, tokens: torch.Tensor,
             entry["conv"].copy_(conv)
             entry["ssm"].copy_(ssm)
         xx = xx + out
-        if spec.moe:
-            xx = xx + L.moe_dense(lp["moe"], cfg, L.rms_norm(xx, lp["ln2"]))
-        return xx
+        if "cross_k" in entry:
+            ckv = (entry["cross_k"], entry["cross_v"])
+            out, _, _ = L.attention_decode(lp["cross"], cfg,
+                                           L.rms_norm(xx, lp["ln_x"]),
+                                           *ckv, pos, cross_kv=ckv)
+            xx = xx + out
+        f = _ffn(lp, cfg, spec, xx)
+        return xx if f is None else xx + f
 
     for i in range(head):
         x = dec_layer(params["head"][i], plan[i], x, cache["head"][i])
-    for j in range(p if n_super else 0):
-        for s in range(n_super):
+    for s in range(n_super):        # depth order: superblock, then j
+        for j in range(p):
             x = dec_layer(_slice(params["blocks"][j], s),
                           plan[head + s * p + j], x,
                           _slice(cache["blocks"][j], s))
@@ -294,7 +458,9 @@ def decode_step(params: Params, cfg: ArchConfig, cache, tokens: torch.Tensor,
 
 def cache_specs(cfg: ArchConfig, batch: int,
                 max_len: int) -> Dict[str, List[Dict[str, Tuple]]]:
-    """The cache layout (head/blocks/tail) as ``(shape, dtype)`` pairs."""
+    """The cache layout (head/blocks/tail) as ``(shape, dtype)`` pairs;
+    an encoder-decoder's entries also hold the cross-attention K/V of
+    ``num_prefix_tokens`` frames."""
     dt = _dtype(cfg)
     K, hd = cfg.num_kv_heads, cfg.head_dim
     plan, head, p, n_super, tail = _period_specs(cfg)
@@ -302,11 +468,17 @@ def cache_specs(cfg: ArchConfig, batch: int,
     def entry(spec: LayerSpec, lead: Tuple[int, ...] = ()):
         if spec.kind == "attn":
             shape = lead + (batch, max_len, K, hd)
-            return {"k": (shape, dt), "v": (shape, dt)}
-        conv_ch = cfg.d_inner + 2 * cfg.ssm_state
-        return {"conv": (lead + (batch, cfg.ssm_conv - 1, conv_ch), dt),
-                "ssm": (lead + (batch, cfg.ssm_heads, cfg.ssm_headdim,
-                                cfg.ssm_state), torch.float32)}
+            e = {"k": (shape, dt), "v": (shape, dt)}
+        else:
+            conv_ch = cfg.d_inner + 2 * cfg.ssm_state
+            e = {"conv": (lead + (batch, cfg.ssm_conv - 1, conv_ch), dt),
+                 "ssm": (lead + (batch, cfg.ssm_heads, cfg.ssm_headdim,
+                                 cfg.ssm_state), torch.float32)}
+        if cfg.enc_dec:
+            cross = lead + (batch, cfg.num_prefix_tokens, K, hd)
+            e["cross_k"] = (cross, dt)
+            e["cross_v"] = (cross, dt)
+        return e
 
     return {"head": [entry(plan[i]) for i in range(head)],
             "blocks": [entry(plan[head + j], (n_super,))

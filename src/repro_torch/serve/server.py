@@ -14,6 +14,12 @@ next decode step without a host round trip, and emitted tokens collect
 in ``_out_buf``; the one device-to-host read happens when a request
 finishes (``_finish_slot``).  The KV cache is spliced and updated in
 place.
+
+A request carries tokens only, as in the reference, whose ``Server``
+passes only ``tokens`` to ``prefill``.  A frontend architecture
+(``vision_stub`` patches, ``audio_stub`` frames) needs more than that,
+so ``Server`` refuses it with a ``ValueError``; drive such a model
+through ``models.model.prefill`` and ``decode_step``.
 """
 from __future__ import annotations
 
@@ -80,11 +86,22 @@ class Request:
     _submit_tick: int = -1
 
 
+def check_servable(cfg: ArchConfig) -> None:
+    """Raise ``ValueError`` for an architecture whose input is more than
+    tokens (a request holds a prompt only)."""
+    if cfg.frontend:
+        raise ValueError(
+            f"{cfg.name} needs its {cfg.frontend!r} frontend's embeddings "
+            "beside the tokens, and a Server request carries tokens only; "
+            "drive it through models.model.prefill and decode_step")
+
+
 class Server:
     def __init__(self, cfg: ArchConfig, params: Any, *, max_len: int = 256,
                  batch_slots: int = 4,
                  ingest: Optional[IngestConfig] = None,
                  device: DeviceLike = None) -> None:
+        check_servable(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params

@@ -385,7 +385,13 @@ def test_decode_valid_range(S, pos, window, want):
     (2, 1000, 3, 1, 128, 998, 0), (4, 1064, 16, 1, 128, 1054, 50),
     (1, 600, 2, 8, 64, 555, 0), (2, 700, 4, 2, 80, 650, 0),
     (1, 600, 4, 1, 256, 599, 0), (1, 300, 2, 8, 256, 250, 0),
-    (1, 300, 2, 3, 37, 299, 0)])
+    (1, 300, 2, 3, 37, 299, 0),
+    # the full-width model paths: gemma3 (a local layer's window cutting
+    # at lo 31), qwen3, danube (hd 80 under its 4,096 window), paligemma
+    # (MQA: K 1, G 8, hd 256), whisper's cross-attention (every frame)
+    (4, 1064, 16, 2, 128, 1054, 1024), (4, 1064, 8, 2, 128, 1054, 0),
+    (2, 4184, 8, 4, 80, 4170, 4096), (2, 280, 1, 8, 256, 279, 0),
+    (2, 1500, 8, 1, 64, 1499, 0)])
 def test_decode_attention_kernel_matches_plain_on_card(dtype, B, S, K, G,
                                                        hd, pos, window):
     """Tolerance 2e-5 (float32) / 3e-2 (bfloat16), as the reference's
@@ -593,6 +599,99 @@ def test_moe_dense_one_router_launch_on_card(dtype):
     torch.testing.assert_close(out.cpu().float(),
                                TL.moe_dense(moe, cfg, x).float(),
                                rtol=tol, atol=tol)
+
+
+# ---------------------------------------------- dense and enc-dec models
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _greedy(params, cfg, batch, steps):
+    """Prefill, then ``steps`` greedy decode steps: (tokens, logits)."""
+    from repro_torch.models import model as TM
+    S = batch["tokens"].shape[1]
+    P = cfg.num_prefix_tokens if cfg.frontend == "vision_stub" else 0
+    logits, cache = TM.prefill(params, cfg, batch, max_len=P + S + steps)
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    out = [tok]
+    for t in range(steps):
+        logits, cache = TM.decode_step(params, cfg, cache, tok, P + S + t)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        out.append(tok)
+    return torch.cat(out, 1), logits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma3-27b", "whisper-base"])
+def test_reduced_model_on_card_matches_cpu(arch):
+    """Reduced gemma3 (windows of 16 cut by 20-token prompts, period 2)
+    through the Server, and reduced whisper (the encoder, cross-attention
+    through the decode kernel) through prefill and decode, on the card
+    against the same runs on the CPU in float32: the same tokens, the
+    last logits within 1e-4, the decode kernel once per self- and
+    cross-attention layer per decode step."""
+    _need_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as TM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    tp = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    before = DK.LAUNCHES
+    if arch == "gemma3-27b":
+        shape = dict(requests=3, prompt_len=20, max_new=4, slots=2)
+        gpu = serve(arch, cfg=cfg, params=_to(tp, "cuda"), device="cuda",
+                    **shape)
+        cpu = serve(arch, cfg=cfg, params=tp, device="cpu", **shape)
+        assert [r.out for r in gpu.requests] == \
+            [r.out for r in cpu.requests]
+        got, want = gpu.server.last_logits.cpu(), cpu.server.last_logits
+        launches = cfg.num_layers * gpu.decode_steps
+    else:
+        rng = np.random.default_rng(5)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 20)).astype(np.int32)),
+            "encoder_embeds": torch.from_numpy(rng.standard_normal(
+                (2, cfg.num_prefix_tokens, cfg.d_model)).astype(np.float32))}
+        gtok, got = _greedy(_to(tp, "cuda"), cfg, _to(batch, "cuda"), 8)
+        ctok, want = _greedy(tp, cfg, batch, 8)
+        assert torch.equal(gtok.cpu(), ctok)
+        got = got.cpu()
+        launches = 2 * cfg.num_layers * 8        # self + cross, 8 steps
+    assert DK.LAUNCHES - before == launches
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stacked_init_peak_on_card(dtype):
+    """``init_params`` fills each stacked leaf in place: its peak
+    allocation stays under the parameters' own bytes plus the largest
+    float32 draw (the embedding's), for a config of 3 superblocks of
+    period 2 (the full-width gemma3 needs 54.0 GB plus 5.6 GB so)."""
+    _need_cuda()
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+    cfg = dataclasses.replace(
+        get_config("gemma3-27b").reduced(num_layers=6), param_dtype=dtype)
+    assert cfg.plan_blocks() == (0, 2, 3, 0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = TM.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    peak = torch.cuda.max_memory_allocated() - base
+    draw = 4 * cfg.vocab_size * cfg.d_model
+    assert params["blocks"][1]["mlp"]["wd"].shape[0] == 3
+    assert held < peak <= held + draw, (held, peak, draw)
 
 
 # ------------------------------------------------------------------ ssd_scan
