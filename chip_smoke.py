@@ -99,6 +99,30 @@ Phases (one JSON line each):
    frame embeddings): finite logits, tokens in the vocabulary,
    decode_attention once per self- and cross-attention layer per step;
    each model is freed before the next;
+4c. this slice's main paths, training on one device:
+   ``train_kernels_vs_plain``: the router Function's logits gradient on
+   the card against the same Function's on the CPU (tied logits) and
+   against autograd through the plain version on the card (untied),
+   within 1e-6, at T 1,024 and 4,096, E 64, k 8, renormalised or not,
+   float32 and bfloat16 dense weights; the SSD Function's gradients of
+   the conv output, dt and A against the CPU's within 3e-4 (float32) at
+   reduced mamba2's shape and one full-width mamba2 layer's (1 x 4,096
+   x 48 x 64); then both backwards' times at the training shapes;
+   ``reduced_train_*``: reduced OLMoE, mamba2 and jamba (float32) take
+   3 ``make_train_step`` steps on the card and on the CPU: every
+   first-step gradient leaf within atol 1e-5 + rtol 1e-3 and non-zero,
+   the losses within 1e-4, the launches exact; ``train_olmoe`` and
+   ``train_mamba2``: ``olmoe-1b-7b`` (1 x 4,096 tokens, bfloat16 m and
+   v: float32 ones do not fit) and ``mamba2-780m`` (4 x 4,096, float32
+   m and v) at full width through ``Trainer.run`` (``TRAIN_FULL``, 6
+   steps, a checkpoint interval longer than the run), every launch
+   count set to 0 just before and read just after and equal to
+   ``_train_launches`` (moe_route or ssd_scan twice per layer a step:
+   the forward and the remat recompute; no other kernel), finite
+   losses, step ms p50 / p95 after the first step, tokens/s and peak
+   memory; then one more step's gradients outside the Trainer, every
+   leaf (every row of a stacked one) finite and non-zero, the router,
+   ``A_log``, ``dt_bias``, ``conv_w`` and ``in_proj`` leaves named;
 5. a ``kernels`` line: per kernel, its launches on its main path, its
    time per call, the plain version's time and one PyTorch library
    call's time on the same inputs (none computes the SSD scan), and the
@@ -116,7 +140,9 @@ Phases (one JSON line each):
    the gemma3 windowed, danube, paligemma and whisper cross shapes on
    their own caches (each with its launches, times, bound over the
    valid window's bytes and SDPA on the same range); its
-   ``launches_by_path`` counts every serving path's launches.
+   ``launches_by_path`` counts every serving path's launches, and
+   moe_route's and ssd_scan's count their serving and training paths';
+   those two also carry their backward's route and time (``backward``).
 
 Each phase's wall seconds and the total stand on the ``done`` line.
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -129,6 +155,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -187,6 +214,17 @@ DANUBE_SERVE = dict(requests=2, prompt_len=4160, max_new=16, slots=2)
 # frontends' embeddings): prefill of B 2 x 16 text tokens with 256 patch
 # or 1,500 frame embeddings, then 8 greedy decode steps
 FRONTEND_FULL = dict(batch=2, text_tokens=16, steps=8)
+# the training main paths at full width: train_4k's 4,096-token rows (its
+# 256-row batch is a pod's), 1 row for OLMoE and 4 for mamba2; OLMoE's
+# float32 m and v (~83 GB with the rest) do not fit the card, bfloat16 do
+TRAIN_FULL = {
+    "olmoe-1b-7b": dict(batch=1, seq_len=4096, steps=6, lr=1e-3,
+                        warmup_steps=1, state_dtype="bfloat16",
+                        why="float32 m and v need ~83 GB with params and "
+                            "grads (param_counts); bfloat16 ~55 GB"),
+    "mamba2-780m": dict(batch=4, seq_len=4096, steps=6, lr=1e-3,
+                        warmup_steps=1, state_dtype="float32",
+                        why="the config's opt_dtype (float32; ~9.4 GB)")}
 # decode_attention against its plain version at the new model paths'
 # shapes: (path, B, S, K, G, hd, [(pos, window), ...])
 DECODE_SHAPES = (
@@ -470,7 +508,8 @@ def _route_logits(T, E, seed, dev):
 def phase_model_kernels_vs_plain(dev):
     """decode_attention and moe_route against their plain versions at the
     serving main path's shapes (OLMoE: B 4, K 16, G 1, hd 128, S 1,064;
-    the router at T 4 (decode) and 1,024 (prefill), E 64, k 8)."""
+    the router at T 4 (decode), 1,024 (prefill) and 4,096 (a train step),
+    E 64, k 8)."""
     import torch
     from repro_torch.kernels.decode_attention import kernel as DK
     from repro_torch.kernels.decode_attention import ref as DR
@@ -497,7 +536,7 @@ def phase_model_kernels_vs_plain(dev):
             if not ok:
                 fail(f"decode_attention differs from its plain version: "
                      f"{dtype} pos {pos} window {window}, max err {err}")
-    for T in (4, 1024):
+    for T in (4, 1024, 4096):
         for renorm in (False, True):
             logits = _route_logits(T, 64, T, dev)
             w, idx = RK.route_cuda(logits, 8, renorm)
@@ -567,8 +606,9 @@ def _check_route_dense(logits, k, renorm, dt, case):
 def phase_ssd_vs_plain(dev):
     """ssd_scan against its plain version: mamba2's serving shape (B 1,
     S 1,024, H 48, P 64, N 128, Q 256), a partial last chunk (S 1,000),
-    B 2, and the reference sweep shape (2, 512, 8, 64, 128, Q 128), each
-    in float32 and bfloat16, with x, Bm and Cm strided slices of one
+    B 2, the reference sweep shape (2, 512, 8, 64, 128, Q 128) and
+    mamba2's training shape (B 4, S 4,096: 16 chunks), each in float32
+    and bfloat16, with x, Bm and Cm strided slices of one
     conv output as ``ssd_block`` passes them.  y within 3e-4 (float32) /
     4e-2 (bfloat16), the reference's kernel tolerances; the final state,
     float32 in both, within 3e-4.  Returns the serving-shape cases'
@@ -579,7 +619,8 @@ def phase_ssd_vs_plain(dev):
     cases = (("serve", 1, 1024, 48, 64, 128, 256),
              ("partial_S1000", 1, 1000, 48, 64, 128, 256),
              ("B2", 2, 1024, 48, 64, 128, 256),
-             ("sweep", 2, 512, 8, 64, 128, 128))
+             ("sweep", 2, 512, 8, 64, 128, 128),
+             ("train", 4, 4096, 48, 64, 128, 256))
     measured = {}
     for name, B, S, H, P, N, Q in cases:
         for dtype, tol in (("float32", 3e-4), ("bfloat16", 4e-2)):
@@ -661,7 +702,7 @@ def _to(tree, d):
         return {k: _to(v, d) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to(v, d) for v in tree]
-    return tree.to(d)
+    return tree.to(d, copy=True)
 
 
 def _frontend_batch(cfg, B, S, seed, dev):
@@ -1506,6 +1547,314 @@ def phase_prefill_decode(dev, arch):
     return cfg, cache, launches
 
 
+# ------------------------------------------------------------------ phase 4c
+def _train_launches(cfg, steps):
+    """Every kernel's launches in ``steps`` train steps: moe_route once
+    per MoE layer and ssd_scan once per SSD layer in the forward, and
+    once more per such layer of a superblock in the backward's remat
+    recompute (``cfg.remat``; head and tail layers are not
+    rematerialised); decode_attention and market_clear never."""
+    plan = cfg.layer_plan()
+    head, p, n_super, _ = cfg.plan_blocks()
+    runs = [2 if cfg.remat and head <= i < head + p * n_super else 1
+            for i in range(len(plan))]
+    return {"market_clear": 0, "decode_attention": 0,
+            "moe_route": steps * sum(r for r, spec in zip(runs, plan)
+                                     if spec.moe),
+            "ssd_scan": steps * sum(r for r, spec in zip(runs, plan)
+                                    if spec.kind == "ssm")}
+
+
+def _route_grad(logits, k, renorm, dt, up, plain=False):
+    """d sum(dense * up) / d logits through the router Function (or, with
+    ``plain``, autograd through the plain version)."""
+    import torch
+    from repro_torch.kernels.moe_route import ops as RO
+    from repro_torch.kernels.moe_route import ref as RR
+    logits = logits.detach().clone().requires_grad_(True)
+    fn = RR.route_dense_ref if plain else RO.route_dense
+    _, _, dense = fn(logits, k, renorm, dt)
+    loss = (dense.float() * up.float()).sum()
+    return torch.autograd.grad(loss, logits)[0]
+
+
+def _ssd_grads(xbc, dt, A, up, H, P, N, Q):
+    """Gradients of sum(y * up) in the conv output ``xbc`` (x, Bm and Cm
+    are its slices, as ``ssd_block`` passes them), dt and A through the
+    SSD Function."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as SO
+    ins = [t.detach().clone().requires_grad_(True) for t in (xbc, dt, A)]
+    B, S = xbc.shape[:2]
+    xs, Bm, Cm = torch.split(ins[0], [H * P, N, N], dim=-1)
+    y, _ = SO.ssd_scan(xs.reshape(B, S, H, P), ins[1], ins[2], Bm, Cm, Q)
+    return torch.autograd.grad((y.float() * up).sum(), ins)
+
+
+def phase_train_kernels_vs_plain(dev):
+    """The two Functions' backwards on the card: the router's logits
+    gradient against the same Function's on the CPU (tied logits,
+    within 1e-6) and against autograd through the plain version on the
+    card (untied logits, within 1e-6: on ties that autograd follows
+    torch's max, not the kernel's lowest index), at T 1,024 and 4,096, E
+    64, k 8, renormalised and not, dense weights float32 and bfloat16;
+    the SSD Function's input gradients against the CPU's (float32,
+    within 3e-4) at reduced mamba2's shape and at one full-width mamba2
+    layer's (1 x 4,096 x 48 x 64, N 128, Q 256).  Then the backward's
+    time on the card at each training path's shape.  Returns those
+    times for the ``kernels`` line."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_route import ops as RO
+    from repro_torch.kernels.ssd_scan import ops as SO
+    from repro_torch.kernels.ssd_scan import ref as SR
+    for T in (1024, 4096):
+        for renorm in (False, True):
+            for dt in (torch.float32, torch.bfloat16):
+                tied = _route_logits(T, 64, T, dev)
+                untied = _randn((T, 64), T + 5, dev, torch.float32)
+                up = _randn((T, 64), T + 7, dev, torch.float32).to(dt)
+                g = _route_grad(tied, 8, renorm, dt, up)
+                g_cpu = _route_grad(tied.cpu(), 8, renorm, dt, up.cpu())
+                g_u = _route_grad(untied, 8, renorm, dt, up)
+                g_plain = _route_grad(untied, 8, renorm, dt, up, plain=True)
+                torch.cuda.synchronize()
+                err_cpu = float((g.cpu() - g_cpu).abs().max())
+                err_plain = float((g_u - g_plain).abs().max())
+                scale = float(g_cpu.abs().max())
+                ok = err_cpu <= 1e-6 and err_plain <= 1e-6 and scale > 0
+                emit({"phase": "train_kernels_vs_plain", "kernel": "moe_route",
+                      "case": f"grad_T{T}_E64_k8_renorm{int(renorm)}_"
+                              f"{str(dt)[6:]}",
+                      "max_abs_err_vs_cpu_tied": err_cpu,
+                      "max_abs_err_vs_plain_autograd_untied": err_plain,
+                      "grad_max_abs": scale, "tolerance": 1e-6, "ok": ok})
+                if not ok:
+                    fail(f"the router's backward on the card: T {T} renorm "
+                         f"{renorm} {dt}: err vs CPU {err_cpu}, vs the plain "
+                         f"version's autograd {err_plain}, scale {scale}")
+    red = get_config("mamba2-780m").reduced()
+    for name, (B, S, H, P, N, Q) in (
+            ("reduced_mamba2", (2, 20, red.ssm_heads, red.ssm_headdim,
+                                red.ssm_state, red.ssm_chunk)),
+            ("mamba2_layer", (1, 4096, 48, 64, 128, 256))):
+        xs, dt_, A, Bm, _ = SR.sample_inputs(B, S, H, P, N, S, "cpu",
+                                             torch.float32)
+        xbc = xs._base if xs._base is not None else xs
+        up = _randn((B, S, H, P), S + 1, "cpu", torch.float32)
+        got = _ssd_grads(xbc.to(dev), dt_.to(dev), A.to(dev), up.to(dev),
+                         H, P, N, Q)
+        want = _ssd_grads(xbc, dt_, A, up, H, P, N, Q)
+        errs = {n: float((g.cpu() - w).abs().max())
+                for n, g, w in zip(("xbc", "dt", "A"), got, want)}
+        ok = all(bool(torch.allclose(g.cpu(), w, rtol=3e-4, atol=3e-4))
+                 and float(w.abs().max()) > 0 for g, w in zip(got, want))
+        emit({"phase": "train_kernels_vs_plain", "kernel": "ssd_scan",
+              "case": f"grad_{name}_float32", "shape": [B, S, H, P, N],
+              "chunk": Q, "max_abs_err": errs,
+              "grad_max_abs": {n: float(w.abs().max())
+                               for n, w in zip(("xbc", "dt", "A"), want)},
+              "tolerance": 3e-4, "ok": ok})
+        if not ok:
+            fail(f"the SSD backward on the card differs from the CPU's at "
+                 f"{name}: {errs}")
+    # the backwards' time at the training paths' shapes (bf16, as trained)
+    T, E, k = 4096, 64, 8
+    logits = _randn((T, E), 31, dev, torch.float32)
+    w, idx, _ = RO._route(logits, k, False, torch.bfloat16)
+    g_dense = _randn((T, E), 32, dev, torch.bfloat16)
+
+    def route_bwd(i):
+        return RO.route_backward(logits, idx, None, g_dense, False)
+    route = {"route": "torch (closed form, kernels/moe_route/ops.py "
+                      "route_backward)",
+             "ms": _graph_ms(route_bwd, 50),
+             "ms_eager": _time_ms(route_bwd, 50),
+             "shape": {"T": T, "E": E, "k": k, "dense": "torch.bfloat16"}}
+    B, S, H, P, N, Q = 4, 4096, 48, 64, 128, 256
+    args = SR.sample_inputs(B, S, H, P, N, 33, dev, torch.bfloat16)
+    g_y = _randn((B, S, H, P), 34, dev, torch.bfloat16)
+    needs = (True,) * 5
+
+    def ssd_bwd(i):
+        return SO.ssd_scan_backward(args, Q, g_y, None, needs)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    ssd = {"route": "torch (the plain version recomputed under autograd, "
+                    "kernels/ssd_scan/ops.py ssd_scan_backward)",
+           "ms_eager": _time_ms(ssd_bwd, 3),
+           "peak_extra_gb": (torch.cuda.max_memory_allocated(dev) - base)
+           / 1e9,
+           "shape": {"B": B, "S": S, "H": H, "P": P, "N": N, "Q": Q,
+                     "dtype": "torch.bfloat16"}}
+    emit({"phase": "train_backward_times", "moe_route": route,
+          "ssd_scan": ssd})
+    return {"moe_route": route, "ssd_scan": ssd}
+
+
+def _train_batches(cfg, B, S, steps):
+    """``SyntheticTokens`` batches 0 .. steps - 1 (numpy)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, S, B, 0))
+    return [data.batch(i) for i in range(steps)]
+
+
+def phase_reduced_train(dev, arch):
+    """A reduced model (float32, no TF32) trained for 3 steps of
+    ``make_train_step`` on the card and on the CPU from the same seeded
+    parameters: every first-step gradient leaf within atol 1e-5 + rtol
+    1e-3 of the CPU's and non-zero on the card (no gradient silently lost
+    through a kernel), each loss within 1e-4, every launch count exact
+    (``_train_launches``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import steps as TS
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import AdamWConfig, make_train_state
+    from repro_torch.tree import walk
+    cfg = get_config(arch).reduced()
+    opt = AdamWConfig(lr=1e-2, warmup_steps=2)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = _to(params, dev)
+    batches = _train_batches(cfg, 2, 20, 3)
+
+    def on(d, b):
+        return {k: torch.from_numpy(v).to(d) for k, v in b.items()}
+    lg, gg = TS.loss_and_grads(card, cfg, on(dev, batches[0]))
+    lc, gc_ = TS.loss_and_grads(params, cfg, on("cpu", batches[0]))
+    names = [n for n, _, _ in walk(params)]
+    bad, zero, worst = [], [], 0.0
+    for n, g, c in zip(names, gg, gc_):
+        g = g.cpu()
+        worst = max(worst, float((g - c).abs().max()))
+        if not torch.allclose(g, c, rtol=1e-3, atol=1e-5):
+            bad.append(n)
+        if not float(g.abs().max()) > 0:
+            zero.append(n)
+    del gg, gc_
+    step = TS.make_train_step(cfg, opt)
+    st_card = make_train_state(card, opt)
+    st_cpu = make_train_state(params, opt)
+    _reset_launches()
+    card_losses = []
+    for b in batches:
+        st_card, m = step(st_card, on(dev, b))
+        card_losses.append(float(m["loss"]))
+    launches = _read_launches()
+    cpu_losses = []
+    for b in batches:
+        st_cpu, m = step(st_cpu, on("cpu", b))
+        cpu_losses.append(float(m["loss"]))
+    loss_err = max(abs(a - b) for a, b in zip(card_losses, cpu_losses))
+    first_err = abs(float(lg) - float(lc))
+    want = _train_launches(cfg, len(batches))
+    emit({"phase": "reduced_train_gpu_vs_cpu", "arch": cfg.name,
+          "reduced": True, "batch": 2, "seq_len": 20, "steps": 3,
+          "grad_leaves": len(names), "grad_max_abs_err": worst,
+          "grad_leaves_outside_tolerance": bad, "zero_grad_leaves": zero,
+          "grad_tolerance": {"rtol": 1e-3, "atol": 1e-5},
+          "losses_card": card_losses, "losses_cpu": cpu_losses,
+          "loss_max_abs_err": max(loss_err, first_err),
+          "loss_tolerance": 1e-4, "launches": launches,
+          "expected_launches": want})
+    if bad or zero or loss_err > 1e-4 or first_err > 1e-4 or \
+            launches != want:
+        fail(f"reduced {cfg.name} training on the card differs from the "
+             f"CPU: grads outside tolerance {bad}, zero {zero}, loss err "
+             f"{max(loss_err, first_err)}, launches {launches} (expected "
+             f"{want})")
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def phase_train(dev, arch):
+    """A full-width train run through ``Trainer.run`` (bfloat16 params,
+    random weights from ``torch.Generator`` seed 0 on the card, the
+    synthetic batches, a checkpoint interval longer than the run), with
+    every launch count set to 0 just before and read just after; then
+    one more step's gradients outside the Trainer: every parameter leaf
+    (and every row of a stacked one) finite and non-zero."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import steps as TS
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    from repro_torch.tree import walk
+    cfg = get_config(arch)
+    spec = TRAIN_FULL[arch]
+    B, S, steps = spec["batch"], spec["seq_len"], spec["steps"]
+    opt = AdamWConfig(lr=spec["lr"], warmup_steps=spec["warmup_steps"],
+                      state_dtype=spec["state_dtype"])
+    ckdir = OUT / f"train_ckpt_{arch}"
+    tr = Trainer(cfg, DataConfig(cfg.vocab_size, S, B, 0), opt,
+                 TrainConfig(steps=steps, checkpoint_every=steps + 1,
+                             checkpoint_dir=str(ckdir)), device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches()
+    t0 = time.perf_counter()
+    rep = tr.run(resume=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    want = _train_launches(cfg, steps)
+    later = rep.step_s[1:]
+    p50 = _pct(later, 0.5)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             tr.data.batch(steps).items()}
+    loss, grads = TS.loss_and_grads(tr.state["params"], cfg, batch)
+    named = {}
+    bad = []
+    for (name, stacked, _), g in zip(walk(tr.state["params"]), grads):
+        rows = g.unbind(0) if stacked else (g,)
+        row_max = [float(r.abs().max()) for r in rows]
+        finite = bool(torch.isfinite(g).all())
+        if not finite or min(row_max) <= 0:
+            bad.append(name)
+        if any(key in name for key in ("router", "A_log", "dt_bias",
+                                       "conv_w", "in_proj")):
+            named[name] = {"finite": finite, "min_row_max_abs": min(row_max),
+                           "rows": len(rows)}
+    extra_loss = float(loss)
+    n_leaves = len(grads)
+    del grads, loss, batch
+    finite = all(map(math.isfinite, rep.losses))
+    emit({"phase": "train_main_path", "arch": cfg.name, "full": True,
+          "param_dtype": cfg.param_dtype, "params_b":
+          cfg.param_counts()[0] / 1e9, "state_dtype": opt.state_dtype,
+          "state_dtype_why": spec["why"], "batch": B, "seq_len": S,
+          "steps": steps, "lr": opt.lr, "warmup_steps": opt.warmup_steps,
+          "remat": cfg.remat, "remat_policy": cfg.remat_policy,
+          "step_ms_first": rep.step_s[0] * 1e3,
+          "step_ms_p50": p50 * 1e3, "step_ms_p95": _pct(later, 0.95) * 1e3,
+          "step_ms_all": [t * 1e3 for t in rep.step_s],
+          "tokens_per_s": B * S / p50, "peak_mem_gb": peak / 1e9,
+          "losses": rep.losses, "loss_first": rep.losses[0],
+          "loss_last": rep.losses[-1], "losses_finite": finite,
+          "loss_fell": rep.losses[-1] < rep.losses[0],
+          "stragglers": rep.stragglers, "launches": launches,
+          "expected_launches": want, "wall_with_init_s": wall,
+          "extra_step": {"loss": extra_loss, "grad_leaves": n_leaves,
+                         "bad_leaves": bad, "named": named}})
+    if not finite or not math.isfinite(extra_loss):
+        fail(f"{cfg.name} training gave non-finite losses {rep.losses} "
+             f"(extra step {extra_loss})")
+    if launches != want:
+        fail(f"the {cfg.name} train path launched {launches}; expected "
+             f"{want}")
+    if bad:
+        fail(f"{cfg.name}: gradients non-finite or zero in {bad}")
+    del tr, rep
+    _release()
+    return launches
+
+
 def _release() -> None:
     """Return the memory of a model the caller has dropped, before the
     next model's peak."""
@@ -1817,6 +2166,7 @@ def _moe_route_entry(rep, launches, dev):
             "source": "src/repro_torch/csrc/moe_route.cu",
             "replaces": "src/repro/kernels/moe_route/kernel.py:59",
             "launches": launches["moe_route"],
+            "launches_by_path": {f"{cfg.name} serve": launches["moe_route"]},
             "max_abs_err": max(dec["max_abs_err"], pre["max_abs_err"]),
             "ms": dec["kernel_ms"], "ms_eager": dec["kernel_ms_eager"],
             **{key: dec[key] for key in (
@@ -1884,7 +2234,9 @@ def _ssd_scan_entry(rep, launches, measured):
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:70",
-            "launches": launches["ssd_scan"], "max_abs_err": err, **times,
+            "launches": launches["ssd_scan"],
+            "launches_by_path": {f"{cfg.name} serve": launches["ssd_scan"]},
+            "max_abs_err": err, **times,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_ms_fp32_cores": fp32_ms, "library_ms": None,
             "library": "none (no single PyTorch call computes the scan)",
@@ -1989,6 +2341,17 @@ def main() -> None:
                        blk["cross_k"].shape[2] - 1, 0)
     del cache, blk
     _release()
+    # this slice's main paths: training on one device
+    backward = timed("train_kernels_vs_plain", phase_train_kernels_vs_plain,
+                     dev)
+    for arch in (SERVE_ARCH, SSM_ARCH, "jamba-v0.1-52b"):
+        timed(f"reduced_train_{arch}", phase_reduced_train, dev, arch)
+    for arch, name in ((SERVE_ARCH, "moe_route"), (SSM_ARCH, "ssd_scan")):
+        launches = timed(f"train_{arch.split('-')[0]}", phase_train, dev,
+                         arch)
+        entry = next(e for e in kernels if e["name"] == name)
+        entry["launches_by_path"][f"{arch} train"] = launches[name]
+        entry["backward"] = backward[name]
     emit({"kernels": kernels})
     emit({"phase": "done", "card": card, "phase_s": phase_s,
           "total_s": round(time.perf_counter() - t0, 3)})

@@ -7,7 +7,10 @@ and atomically renamed, so a crash mid-write never corrupts the latest
 checkpoint.  The keys are the reference's (``jax.tree_util.keystr`` of
 each leaf's path: ``['eng']['owner']``, ``['eng']['floor'][0]``) and
 every leaf keeps its own dtype, 0-d scalars included, so a snapshot
-written by either implementation restores in the other.
+written by either implementation restores in the other.  numpy has no
+bfloat16: the reference's bfloat16 leaves (``ml_dtypes``) reach the file
+as raw 2-byte records (``V2``), and the port writes and reads its
+bfloat16 leaves as the same records.
 """
 from __future__ import annotations
 
@@ -21,24 +24,24 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.tree import walk
 
 
-def _walk(tree: Any, prefix: str = ""):
-    """``(key, leaf)`` of every tensor leaf, keyed as ``keystr``."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _walk(tree[k], f"{prefix}[{k!r}]")
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _walk(v, f"{prefix}[{i}]")
-    else:
-        yield prefix, tree
+_BF16_RECORD = np.dtype("V2")     # how a bfloat16 leaf lies in the file
+
+
+def _host(leaf: torch.Tensor) -> np.ndarray:
+    """An owned host copy of ``leaf``: the state goes on changing in
+    place (``adamw_update``) while a writer thread saves the copy."""
+    leaf = leaf.detach().to("cpu", copy=True)
+    if leaf.dtype == torch.bfloat16:
+        return leaf.view(torch.int16).numpy().view(_BF16_RECORD)
+    return leaf.numpy()
 
 
 def _flatten(tree: Any) -> Dict[str, np.ndarray]:
     """Path-keyed host copies of every leaf (the device->host copy)."""
-    return {key: leaf.detach().cpu().numpy()
-            for key, leaf in _walk(tree)}
+    return {key: _host(leaf) for key, _, leaf in walk(tree)}
 
 
 def _unflatten(template: Any, flat: Dict[str, np.ndarray], dev, prefix=""):
@@ -54,6 +57,12 @@ def _unflatten(template: Any, flat: Dict[str, np.ndarray], dev, prefix=""):
     if prefix not in flat:
         raise KeyError(f"checkpoint missing leaf {prefix}")
     arr = np.array(flat[prefix])        # an owned copy; 0-d stays 0-d
+    if arr.dtype == _BF16_RECORD:
+        if template.dtype != torch.bfloat16:
+            raise TypeError(f"leaf {prefix}: bfloat16 records in the "
+                            f"checkpoint, {template.dtype} in the template")
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(dev)
     return torch.from_numpy(arr).to(device=dev, dtype=template.dtype)
 
 

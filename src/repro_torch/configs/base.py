@@ -1,15 +1,14 @@
 """Architecture configuration, a trimmed copy of ``repro.configs.base``.
 
-It keeps the fields and methods that the serving paths of the port's
-architectures read (``layer_plan``, ``encoder_plan``, ``plan_blocks``,
-``param_counts``, ``reduced``), with the reference's defaults, so that
-a config built here and one built there describe the same model.
-Left out, with the code that reads them: ``capacity_factor`` (the
-expert-parallel MoE), ``opt_dtype`` and the ``remat`` knobs (training),
-the shape tables and ``applicable_shapes`` (``launch/``), and
-``ssd_compute_dtype`` (a TPU tuning knob that no config sets; the
-port's scan computes in float32, its default).  A config copied from
-the reference drops any field the port lacks (kimi's ``opt_dtype``).
+It keeps the fields and methods that the serving and one-device
+training paths of the port's architectures read (``layer_plan``,
+``encoder_plan``, ``plan_blocks``, ``param_counts``, ``reduced``), with
+the reference's defaults, so that a config built here and one built
+there describe the same model.  Left out, with the code that reads
+them: ``capacity_factor``, ``moe_psum_dtype`` and ``moe_combine`` (the
+expert-parallel MoE), the shape tables and ``applicable_shapes``
+(``launch/``), and ``ssd_compute_dtype`` (a TPU tuning knob that no
+config sets; the port's scan computes in float32, its default).
 """
 from __future__ import annotations
 
@@ -69,6 +68,9 @@ class ArchConfig:
     num_prefix_tokens: int = 0     # vlm: image patches; audio: frames
 
     param_dtype: str = "bfloat16"
+    opt_dtype: str = "float32"     # AdamW m/v dtype ("bfloat16" to halve it)
+    remat: bool = True             # each superblock under checkpoint
+    remat_policy: str = "nothing"  # "nothing" | "dots" (save the mm outputs)
     attn_softmax_dtype: str = "float32"
 
     def __post_init__(self):

@@ -3,9 +3,7 @@
 [arXiv:2501.kimi2; unverified]  61L d_model=7168 64H (GQA kv=8)
 d_ff=2048 (expert hidden) vocab=163840, MoE 384e top-8.  Per the
 assignment table this uses GQA (not MLA); head_dim=128.  First layer is
-dense (as in the released config).  The reference also sets
-``opt_dtype="bfloat16"`` (AdamW state); the port has no training path
-yet, so its config has no such field and this copy drops it.
+dense (as in the released config).  AdamW state in bf16.
 """
 from repro_torch.configs.base import ArchConfig
 
@@ -26,4 +24,5 @@ CONFIG = ArchConfig(
     moe_layer_period=1,
     first_dense_layers=1,
     tie_embeddings=False,
+    opt_dtype="bfloat16",
 )

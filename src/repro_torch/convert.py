@@ -4,7 +4,8 @@ The reference's engine state, fleet params and fleet state, given as
 numpy arrays (``np.asarray`` of each JAX array), become the port's
 tensors on a given device, and the port's state becomes numpy again —
 so both implementations can start from one mid-run state, and the
-reference's ``schema`` checks can read the port's state.  Dicts, lists
+reference's ``schema`` checks can read the port's state.  A model's
+parameters and a train state cross the same way.  Dicts, lists
 and tuples are walked; dtypes are kept (int32 stays int32).
 """
 from __future__ import annotations
@@ -55,3 +56,15 @@ def model_params_from_jax(params_np, device: DeviceLike = None):
         return torch.from_numpy(arr.astype(np.float32)).to(
             device=dev, dtype=torch.bfloat16)
     return to_torch(arr, dev)
+
+
+def train_state_from_jax(state_np, device: DeviceLike = None):
+    """The reference's train state ``{"params", "m", "v", "step"}``, given
+    as numpy, as the port's on ``device``: params, m and v through
+    ``model_params_from_jax`` (bfloat16 state included), ``step`` a 0-d
+    int32 tensor."""
+    dev = resolve_device(device)
+    out = {k: model_params_from_jax(state_np[k], dev)
+           for k in ("params", "m", "v")}
+    out["step"] = to_torch(np.asarray(state_np["step"], np.int32), dev)
+    return out

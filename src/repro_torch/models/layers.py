@@ -10,6 +10,9 @@ core (self- and cross-attention alike), ``moe_dense`` takes its top-k
 and its dense combine weights from ``kernels.moe_route.ops.route_dense``
 (one launch) and ``ssd_block`` calls ``kernels.ssd_scan.ops.ssd_scan``
 (the CUDA kernels on CUDA tensors, their plain versions on CPU tensors).
+Those two are ``autograd.Function``s, so training reaches the router
+and every SSM input leaf through the kernels as well (the router's
+closed-form backward; the scan's backward through its plain version).
 Prefill attention, the projections, the MLPs, the causal conv and the
 one-token SSM recurrence (``ssd_decode``, pure jnp in the reference)
 stay plain PyTorch, as the reference left them to XLA.

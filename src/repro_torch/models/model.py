@@ -1,7 +1,8 @@
 """Model assembly of the port, twin of ``repro.models.model`` for the
-serving path: parameter init, the unrolled forward (with the vision
-prefix and the audio encoder), prefill, one decode step, and the cache
-layout.
+serving and one-device training paths: parameter init (and its
+storage-free template), the unrolled forward (with the vision prefix,
+the audio encoder and, for training, each superblock rematerialised),
+the loss, prefill, one decode step, and the cache layout.
 
 Parameters are plain dicts of tensors in the reference's layout::
 
@@ -20,13 +21,18 @@ head/blocks/tail layout: K/V for an attention layer (and the encoder's
 cross-attention K/V for an encoder-decoder), the conv window and the
 float32 SSM state for an SSD layer.  The layers run unrolled (the
 reference's ``scan_layers=False``); decode updates the cache in place.
+A stacked leaf is cut into its superblock rows with ``unbind``, whose
+backward writes the rows' gradients into one stacked gradient (a
+``select`` per row would add a zero tensor of the whole stack per row).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import DeviceLike, recip32, resolve_device
@@ -45,9 +51,14 @@ def _stack(trees: List[Dict[str, Any]]) -> Dict[str, Any]:
             for k in trees[0]}
 
 
-def _slice(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
-    return {k: (_slice(v, i) if isinstance(v, dict) else v[i])
-            for k, v in tree.items()}
+def _unstack(tree: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """A stacked tree's rows (views along the first axis), one tree per
+    row."""
+    if isinstance(tree, dict):
+        subs = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(subs.values())))
+        return [{k: subs[k][s] for k in subs} for s in range(n)]
+    return tree.unbind(0)
 
 
 # --------------------------------------------------------------------------
@@ -66,6 +77,9 @@ class _Dense:
         """Draw on the generator's device in float32 and scale in place;
         return it as a new tensor of the parameter dtype on the target
         device, or write it into ``out`` (a row of a stacked leaf)."""
+        if self.ini.device.type == "meta":   # a template: no storage
+            return torch.empty(self.shape, dtype=self.dtype,
+                               device="meta") if out is None else out
         gen = self.ini.gen
         x = torch.randn(self.shape, generator=gen, dtype=torch.float32,
                         device=gen.device).mul_(self.scale)
@@ -265,6 +279,12 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     return params
 
 
+def abstract_params(cfg: ArchConfig) -> Params:
+    """``init_params``' tree with shapes and dtypes but no storage (every
+    leaf on the ``meta`` device; nothing is drawn)."""
+    return init_params(cfg, torch.Generator(), "meta")
+
+
 # --------------------------------------------------------------------------
 # One layer, the stack, the encoder, forward
 # --------------------------------------------------------------------------
@@ -319,10 +339,38 @@ def _period_specs(cfg: ArchConfig):
     return plan, head, p, n_super, tail
 
 
+def _save_products(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: keep the outputs of the products without
+    batch dimensions (``aten.mm``; ``x @ W`` on a (B, S, D) x folds to
+    one), as ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``
+    does, and recompute everything else."""
+    if op == torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ArchConfig):
+    """``fn, *args -> fn(*args)`` under ``torch.utils.checkpoint``, as
+    the reference's ``jax.checkpoint(body, policy=...)``: nothing saved
+    (``remat_policy="nothing"``) or the products' outputs (``"dots"``)."""
+    if cfg.remat_policy == "nothing":
+        context_fn = ckpt.noop_context_fn
+    elif cfg.remat_policy == "dots":
+        context_fn = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_products)
+    else:
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: expected "
+                         "'nothing' or 'dots'")
+    return functools.partial(ckpt.checkpoint, use_reentrant=False,
+                             context_fn=context_fn)
+
+
 def _run_stack(params, cfg, x, positions, *, prefix_len, enc_out, collect,
-               max_len):
-    """Head + unrolled superblocks + tail.  Returns (x, caches dict with
-    head/blocks/tail lists)."""
+               max_len, remat=False):
+    """Head + unrolled superblocks + tail.  With ``remat`` each
+    superblock runs under ``torch.utils.checkpoint`` (its activations
+    are recomputed in the backward); the head and tail layers do not.
+    Returns (x, caches dict with head/blocks/tail lists)."""
     plan, head, p, n_super, tail = _period_specs(cfg)
     caches: Dict[str, Any] = {"head": [], "blocks": [], "tail": []}
 
@@ -331,14 +379,23 @@ def _run_stack(params, cfg, x, positions, *, prefix_len, enc_out, collect,
                             prefix_len=prefix_len, enc_out=enc_out,
                             collect=collect, max_len=max_len)
 
+    def superblock(xx, s, rows):
+        entries = []
+        for j in range(p):
+            xx, e = one(rows[j][s], plan[head + s * p + j], xx)
+            entries.append(e)
+        return xx, entries
+
     for i in range(head):
         x, e = one(params["head"][i], plan[i], x)
         caches["head"].append(e)
+    rows = [_unstack(params["blocks"][j]) for j in range(p)] \
+        if n_super else []
+    run = _remat(cfg) if remat else (lambda fn, *a: fn(*a))
     collected: List[List[Any]] = [[] for _ in range(p)]
     for s in range(n_super):
-        for j in range(p):
-            x, e = one(_slice(params["blocks"][j], s), plan[head + s * p + j],
-                       x)
+        x, entries = run(superblock, x, s, rows)
+        for j, e in enumerate(entries):
             collected[j].append(e)
     if collect and n_super:
         caches["blocks"] = [_stack(c) for c in collected]
@@ -358,9 +415,9 @@ def _encoder_forward(params, cfg: ArchConfig, enc_embeds: torch.Tensor):
     if not eplan:
         return x
     positions = torch.arange(S, device=x.device).expand(B, S)
-    for i, spec in enumerate(eplan):
-        x, _ = _apply_layer(_slice(params["enc_blocks"][0], i), cfg, spec, x,
-                            positions, causal=False)
+    rows = _unstack(params["enc_blocks"][0])
+    for spec, lp in zip(eplan, rows):
+        x, _ = _apply_layer(lp, cfg, spec, x, positions, causal=False)
     return L.rms_norm(x, params["enc_final_norm"])
 
 
@@ -371,8 +428,10 @@ def _logits(params, cfg, x):
 
 
 def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
-            *, collect_cache: bool = False, max_len: int = 0):
-    """Logits (B, S_total, V) and, with ``collect_cache``, the caches.
+            *, remat: bool = False, collect_cache: bool = False,
+            max_len: int = 0):
+    """Logits (B, S_total, V) and, with ``collect_cache``, the caches;
+    ``remat`` rematerialises each superblock (``_run_stack``).
     ``batch`` holds ``tokens`` (B, S) and, for a frontend architecture,
     ``prefix_embeds`` (B, P, D; vision: prepended, attended both ways)
     or ``encoder_embeds`` (B, frames, D; audio: the encoder's input)."""
@@ -392,8 +451,29 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     positions = torch.arange(St, device=x.device).expand(B, St)
     x, caches = _run_stack(params, cfg, x, positions, prefix_len=prefix_len,
                            enc_out=enc_out, collect=collect_cache,
-                           max_len=max_len)
+                           max_len=max_len, remat=remat)
     return _logits(params, cfg, x), (caches if collect_cache else None)
+
+
+# --------------------------------------------------------------------------
+# Loss
+# --------------------------------------------------------------------------
+def lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
+            prefix_len: int = 0) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32 over the text positions
+    (the logits of a vision prefix are skipped)."""
+    preds = logits[:, prefix_len:prefix_len + tokens.shape[1] - 1, :].float()
+    labels = tokens[:, 1:].long()
+    logz = torch.logsumexp(preds, dim=-1)
+    gold = torch.gather(preds, -1, labels[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+def loss_fn(params: Params, cfg: ArchConfig, batch) -> torch.Tensor:
+    """The training loss, remat as ``cfg.remat`` says."""
+    logits, _ = forward(params, cfg, batch, remat=cfg.remat)
+    prefix = cfg.num_prefix_tokens if cfg.frontend == "vision_stub" else 0
+    return lm_loss(logits, batch["tokens"], prefix)
 
 
 # --------------------------------------------------------------------------
@@ -445,11 +525,12 @@ def decode_step(params: Params, cfg: ArchConfig, cache, tokens: torch.Tensor,
 
     for i in range(head):
         x = dec_layer(params["head"][i], plan[i], x, cache["head"][i])
+    rows = [(_unstack(params["blocks"][j]), _unstack(cache["blocks"][j]))
+            for j in range(p)] if n_super else []
     for s in range(n_super):        # depth order: superblock, then j
         for j in range(p):
-            x = dec_layer(_slice(params["blocks"][j], s),
-                          plan[head + s * p + j], x,
-                          _slice(cache["blocks"][j], s))
+            x = dec_layer(rows[j][0][s], plan[head + s * p + j], x,
+                          rows[j][1][s])
     for t in range(tail):
         i = head + n_super * p + t
         x = dec_layer(params["tail"][t], plan[i], x, cache["tail"][t])

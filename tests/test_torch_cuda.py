@@ -579,7 +579,7 @@ def test_moe_dense_one_router_launch_on_card(dtype):
     dt = getattr(torch, dtype)
     tp = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     moe = {k: (v if k == "router" else v.to(dt))
-           for k, v in TM._slice(tp["blocks"][0], 0)["moe"].items()}
+           for k, v in TM._unstack(tp["blocks"][0])[0]["moe"].items()}
     moe_gpu = {k: v.cuda() for k, v in moe.items()}
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (2, 7, cfg.d_model)).astype(np.float32)).to(dt)
@@ -887,3 +887,122 @@ def test_kill_and_resume_on_card(tmp_path, phase):
     # resumed after epoch 4's snapshot: the waves since then
     assert 0 < K.LAUNCHES < base[3]
     _assert_runs_equal(base, _recovery_run("cpu", tmp_path / "cpu"))
+
+
+# ----------------------------------------------------------------- training
+def _train_copy(tree, dev):
+    """A deep copy of a parameter tree on ``dev`` (a train step updates
+    its state in place)."""
+    if isinstance(tree, dict):
+        return {k: _train_copy(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_train_copy(v, dev) for v in tree]
+    return tree.detach().to(dev, copy=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-780m",
+                                  "jamba-v0.1-52b"])
+def test_reduced_train_on_card_matches_cpu(arch):
+    """A reduced model (float32, no TF32) on the card against the CPU
+    from the same parameters: every first-step gradient leaf within atol
+    1e-5 + rtol 1e-3 and non-zero (nothing lost through a kernel), then
+    3 steps of ``make_train_step`` with losses within 1e-4.  The card
+    launches the router and the scan once per layer in the forward and
+    once more in the remat recompute (every layer here is in a
+    superblock): the kernels, never the plain versions."""
+    _need_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.kernels.moe_route import kernel as RK
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    from repro_torch.models import model as TM
+    from repro_torch.models import steps as TS
+    from repro_torch.optim import AdamWConfig, make_train_state
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    head, p, n_super, tail = cfg.plan_blocks()
+    assert head == tail == 0 and cfg.remat
+    plan = cfg.layer_plan()
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, 20, 2, 0))
+    batches = [{"tokens": torch.from_numpy(data.batch(i)["tokens"])}
+               for i in range(3)]
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = _train_copy(params, "cuda")
+    lg, gg = TS.loss_and_grads(card, cfg, _to(batches[0], "cuda"))
+    lc, gc_ = TS.loss_and_grads(params, cfg, batches[0])
+    assert abs(float(lg) - float(lc)) <= 1e-4
+    for g, c in zip(gg, gc_):
+        assert float(g.abs().max()) > 0
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-3, atol=1e-5)
+    opt = AdamWConfig(lr=1e-2, warmup_steps=2)
+    step = TS.make_train_step(cfg, opt)
+    st_card, st_cpu = make_train_state(card, opt), make_train_state(
+        params, opt)
+    before = (RK.LAUNCHES, SK.LAUNCHES)
+    for b in batches:
+        st_card, mg = step(st_card, _to(b, "cuda"))
+        st_cpu, mc = step(st_cpu, b)
+        assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-4
+    assert RK.LAUNCHES - before[0] == 3 * 2 * sum(s.moe for s in plan)
+    assert SK.LAUNCHES - before[1] == 3 * 2 * sum(s.kind == "ssm"
+                                                  for s in plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("renorm", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_route_grad_on_card(dtype, renorm):
+    """The router Function's logits gradient on the card equals the same
+    Function's on the CPU on tied logits (both follow their forward's
+    lowest-index idx) and autograd through the plain version on the card
+    on untied logits, within 1e-6."""
+    _need_cuda()
+    from repro_torch.kernels.moe_route import ops as RO
+    from repro_torch.kernels.moe_route import ref as RR
+    dt = getattr(torch, dtype)
+    gen = np.random.default_rng(3)
+    untied = torch.from_numpy(gen.standard_normal((300, 64))
+                              .astype(np.float32))
+    up = torch.from_numpy(gen.standard_normal((300, 64))
+                          .astype(np.float32)).to(dt)
+
+    def grad(logits, fn):
+        logits = logits.detach().clone().requires_grad_(True)
+        _, _, dense = fn(logits, 8, renorm, dt)
+        return torch.autograd.grad(
+            (dense.float() * up.to(logits.device).float()).sum(), logits)[0]
+    tied = _tied_logits(300, 64, 5)
+    got = grad(tied.cuda(), RO.route_dense)
+    torch.testing.assert_close(got.cpu(), grad(tied.cpu(), RO.route_dense),
+                               rtol=0, atol=1e-6)
+    got = grad(untied.cuda(), RO.route_dense)
+    torch.testing.assert_close(got, grad(untied.cuda(), RR.route_dense_ref),
+                               rtol=0, atol=1e-6)
+    assert float(got.abs().max()) > 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [(2, 20, 8, 16, 16, 16),
+                                             (1, 1000, 48, 64, 128, 256)])
+def test_ssd_grad_on_card_matches_cpu(B, S, H, P, N, chunk):
+    """The SSD Function's gradients of the conv output (x, Bm, Cm as its
+    strided slices), dt and A on the card (the kernel's forward, the
+    recomputed backward) equal the CPU's within 3e-4 (float32)."""
+    _need_cuda()
+    from repro_torch.kernels.ssd_scan import ops as SO
+    xs, dt, A, _, _ = sample_inputs(B, S, H, P, N, 9, "cpu", torch.float32)
+    xbc = xs._base
+    up = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (B, S, H, P)).astype(np.float32))
+
+    def grads(dev):
+        ins = [t.detach().to(dev, copy=True).requires_grad_(True)
+               for t in (xbc, dt, A)]
+        x, Bm, Cm = torch.split(ins[0], [H * P, N, N], dim=-1)
+        y, _ = SO.ssd_scan(x.reshape(B, S, H, P), ins[1], ins[2], Bm, Cm,
+                           chunk)
+        return torch.autograd.grad((y * up.to(dev)).sum(), ins)
+    for g, c in zip(grads("cuda"), grads("cpu")):
+        assert float(c.abs().max()) > 0
+        torch.testing.assert_close(g.cpu(), c, rtol=3e-4, atol=3e-4)

@@ -257,7 +257,7 @@ def _layer0(tcfg):
     and a torch tree holding the same values (a layer test needs equal
     weights, not the reference's draw)."""
     tp = TM.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
-    tl = TM._slice(tp["blocks"][0], 0)
+    tl = TM._unstack(tp["blocks"][0])[0]
     return jax.tree.map(lambda t: jnp.asarray(t.numpy()), tl), tl
 
 
@@ -399,7 +399,7 @@ def test_cross_decode_runs_the_decode_kernel_at_the_last_key(monkeypatch):
     from repro_torch.kernels.decode_attention import ops as decode_ops
     _, tcfg = _cfgs("whisper-base")
     tp = TM.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
-    lp = TM._slice(tp["blocks"][0], 0)
+    lp = TM._unstack(tp["blocks"][0])[0]
     calls = []
     real = decode_ops.decode_attention
 

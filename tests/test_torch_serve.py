@@ -75,7 +75,7 @@ def params(cfgs):
 
 def _layer0(jp, tp):
     jl = jax.tree.map(lambda a: a[0], jp["blocks"][0])
-    tl = TM._slice(tp["blocks"][0], 0)
+    tl = TM._unstack(tp["blocks"][0])[0]
     return jl, tl
 
 

@@ -65,7 +65,7 @@ def params(cfgs):
 
 def _layer0(jp, tp):
     return (jax.tree.map(lambda a: a[0], jp["blocks"][0])["ssm"],
-            TM._slice(tp["blocks"][0], 0)["ssm"])
+            TM._unstack(tp["blocks"][0])[0]["ssm"])
 
 
 def _cast(jtree, ttree, dtype):
