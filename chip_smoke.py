@@ -99,7 +99,9 @@ Phases (one JSON line each):
    frame embeddings): finite logits, tokens in the vocabulary,
    decode_attention once per self- and cross-attention layer per step;
    each model is freed before the next;
-4c. this slice's main paths, training on one device:
+4c. the training main paths, on the trainer's one-rank (1, 1) mesh
+   (one NCCL group over a ``HashStore``; the MoE layers run the
+   reference's capacity-limited ``moe_ep``):
    ``train_kernels_vs_plain``: the router Function's logits gradient on
    the card against the same Function's on the CPU (tied logits) and
    against autograd through the plain version on the card (untied),
@@ -108,21 +110,34 @@ Phases (one JSON line each):
    the conv output, dt and A against the CPU's within 3e-4 (float32) at
    reduced mamba2's shape and one full-width mamba2 layer's (1 x 4,096
    x 48 x 64); then both backwards' times at the training shapes;
+   ``moe_ep_vs_plain``: one full-width OLMoE MoE layer (``MOE_EP_LAYER``:
+   T 4,096, bfloat16, 640 slots an expert) through ``moe_ep`` on the
+   card and on the CPU: ``buf_tok`` and the per-expert counts exactly
+   equal, the output within 3e-2, every gradient within 3e-2 of the
+   CPU's largest, the dropped share printed;
    ``reduced_train_*``: reduced OLMoE, mamba2 and jamba (float32) take
-   3 ``make_train_step`` steps on the card and on the CPU: every
-   first-step gradient leaf within atol 1e-5 + rtol 1e-3 and non-zero,
-   the losses within 1e-4, the launches exact; ``train_olmoe`` and
-   ``train_mamba2``: ``olmoe-1b-7b`` (1 x 4,096 tokens, bfloat16 m and
-   v: float32 ones do not fit) and ``mamba2-780m`` (4 x 4,096, float32
-   m and v) at full width through ``Trainer.run`` (``TRAIN_FULL``, 6
-   steps, a checkpoint interval longer than the run), every launch
-   count set to 0 just before and read just after and equal to
-   ``_train_launches`` (moe_route or ssd_scan twice per layer a step:
-   the forward and the remat recompute; no other kernel), finite
-   losses, step ms p50 / p95 after the first step, tokens/s and peak
-   memory; then one more step's gradients outside the Trainer, every
+   3 ``make_train_step`` steps over the mesh on the card and on the CPU:
+   every first-step gradient leaf within atol 1e-5 + rtol 1e-3 and
+   non-zero, the losses within 1e-4, the launches exact; ``train_olmoe``
+   and ``train_mamba2``: ``olmoe-1b-7b`` (1 x 4,096 tokens, bfloat16 m
+   and v: float32 ones do not fit) and ``mamba2-780m`` (4 x 4,096,
+   float32 m and v) at full width through ``launch.train.train`` and
+   ``Trainer.run`` (``TRAIN_FULL``, 6 steps, a checkpoint interval
+   longer than the run), every launch count set to 0 just before and
+   read just after and equal to ``_train_launches`` (moe_route or
+   ssd_scan twice per layer a step: the forward and the remat
+   recompute; no other kernel), finite losses, step ms p50 / p95 after
+   the first step, tokens/s, peak memory and ``moe_ep``'s dropped share;
+   then one more step's gradients outside the Trainer on its mesh, every
    leaf (every row of a stacked one) finite and non-zero, the router,
    ``A_log``, ``dt_bias``, ``conv_w`` and ``in_proj`` leaves named;
+   ``launch_train_market``: ``launch.train.market_scenario``
+   (``tests/test_system.py``'s rival-outbids-then-leaves scenario, 24
+   steps in three runs, each resumed from a checkpoint) with reduced
+   OLMoE on the card (``max_devices`` 1) against the CPU, each run from
+   the same checkpoint: losses within 1e-5, a restore per run, the router's
+   launches exact (one card holds one NCCL rank: the resizes run on
+   CPU gloo ranks in ``tests/test_torch_launch.py``);
 5. a ``kernels`` line: per kernel, its launches on its main path, its
    time per call, the plain version's time and one PyTorch library
    call's time on the same inputs (none computes the SSD scan), and the
@@ -1699,9 +1714,19 @@ def _train_batches(cfg, B, S, steps):
     return [data.batch(i) for i in range(steps)]
 
 
+def _mesh_info(dev):
+    """The trainer's one-rank (1, 1) mesh on ``dev``'s type (NCCL on the
+    card, gloo on the CPU, one default group)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import MeshInfo
+    return MeshInfo(make_mesh((1, 1), ("data", "model"), dev), ("data",),
+                    "model")
+
+
 def phase_reduced_train(dev, arch):
     """A reduced model (float32, no TF32) trained for 3 steps of
-    ``make_train_step`` on the card and on the CPU from the same seeded
+    ``make_train_step`` over the trainer's one-rank mesh (the MoE layers
+    run ``moe_ep``) on the card and on the CPU from the same seeded
     parameters: every first-step gradient leaf within atol 1e-5 + rtol
     1e-3 of the CPU's and non-zero on the card (no gradient silently lost
     through a kernel), each loss within 1e-4, every launch count exact
@@ -1713,6 +1738,7 @@ def phase_reduced_train(dev, arch):
     from repro_torch.optim import AdamWConfig, make_train_state
     from repro_torch.tree import walk
     cfg = get_config(arch).reduced()
+    mesh_card, mesh_cpu = _mesh_info(dev), _mesh_info("cpu")
     opt = AdamWConfig(lr=1e-2, warmup_steps=2)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     card = _to(params, dev)
@@ -1720,8 +1746,10 @@ def phase_reduced_train(dev, arch):
 
     def on(d, b):
         return {k: torch.from_numpy(v).to(d) for k, v in b.items()}
-    lg, gg = TS.loss_and_grads(card, cfg, on(dev, batches[0]))
-    lc, gc_ = TS.loss_and_grads(params, cfg, on("cpu", batches[0]))
+    lg, gg = TS.loss_and_grads(card, cfg, on(dev, batches[0]),
+                               TS.make_moe_fn(mesh_card))
+    lc, gc_ = TS.loss_and_grads(params, cfg, on("cpu", batches[0]),
+                                TS.make_moe_fn(mesh_cpu))
     names = [n for n, _, _ in walk(params)]
     bad, zero, worst = [], [], 0.0
     for n, g, c in zip(names, gg, gc_):
@@ -1732,7 +1760,7 @@ def phase_reduced_train(dev, arch):
         if not float(g.abs().max()) > 0:
             zero.append(n)
     del gg, gc_
-    step = TS.make_train_step(cfg, opt)
+    step = TS.make_train_step(cfg, opt, mesh_card)
     st_card = make_train_state(card, opt)
     st_cpu = make_train_state(params, opt)
     _reset_launches()
@@ -1742,6 +1770,7 @@ def phase_reduced_train(dev, arch):
         card_losses.append(float(m["loss"]))
     launches = _read_launches()
     cpu_losses = []
+    step = TS.make_train_step(cfg, opt, mesh_cpu)
     for b in batches:
         st_cpu, m = step(st_cpu, on("cpu", b))
         cpu_losses.append(float(m["loss"]))
@@ -1749,7 +1778,8 @@ def phase_reduced_train(dev, arch):
     first_err = abs(float(lg) - float(lc))
     want = _train_launches(cfg, len(batches))
     emit({"phase": "reduced_train_gpu_vs_cpu", "arch": cfg.name,
-          "reduced": True, "batch": 2, "seq_len": 20, "steps": 3,
+          "reduced": True, "mesh": [1, 1], "batch": 2, "seq_len": 20,
+          "steps": 3,
           "grad_leaves": len(names), "grad_max_abs_err": worst,
           "grad_leaves_outside_tolerance": bad, "zero_grad_leaves": zero,
           "grad_tolerance": {"rtol": 1e-3, "atol": 1e-5},
@@ -1770,45 +1800,63 @@ def _pct(xs, q):
     return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
 
 
-def phase_train(dev, arch):
-    """A full-width train run through ``Trainer.run`` (bfloat16 params,
-    random weights from ``torch.Generator`` seed 0 on the card, the
-    synthetic batches, a checkpoint interval longer than the run), with
-    every launch count set to 0 just before and read just after; then
-    one more step's gradients outside the Trainer: every parameter leaf
-    (and every row of a stacked one) finite and non-zero."""
+def _drop_share(records):
+    """Dropped (token, expert) pairs over all pairs in ``moe_ep``'s
+    ``DISPATCH`` records."""
+    from repro_torch.models import layers as TL
+    if not records:
+        return None
+    counts = [TL.dropped_pairs(r) for r in records]
+    return sum(int(d) for d, _ in counts) / sum(int(n) for _, n in counts)
+
+
+def phase_train(dev, arch, card):
+    """A full-width train run through ``launch.train.train`` and
+    ``Trainer.run`` on a one-rank NCCL group (the trainer's (1, 1) mesh,
+    so the MoE layers run ``moe_ep``; bfloat16 params, random weights
+    from ``torch.Generator`` seed 0 on the card, the synthetic batches,
+    a checkpoint interval longer than the run), with every launch count
+    set to 0 just before and read just after, and the share of
+    (token, expert) pairs ``moe_ep`` dropped; then one more step's
+    gradients outside the Trainer on its mesh: every parameter leaf (and
+    every row of a stacked one) finite and non-zero."""
     import shutil
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import train
+    from repro_torch.models import layers as TL
     from repro_torch.models import steps as TS
+    from repro_torch.models.model import MeshInfo
     from repro_torch.optim import AdamWConfig
-    from repro_torch.train.trainer import TrainConfig, Trainer
     from repro_torch.tree import walk
-    cfg = get_config(arch)
     spec = TRAIN_FULL[arch]
     B, S, steps = spec["batch"], spec["seq_len"], spec["steps"]
     opt = AdamWConfig(lr=spec["lr"], warmup_steps=spec["warmup_steps"],
                       state_dtype=spec["state_dtype"])
     ckdir = OUT / f"train_ckpt_{arch}"
-    tr = Trainer(cfg, DataConfig(cfg.vocab_size, S, B, 0), opt,
-                 TrainConfig(steps=steps, checkpoint_every=steps + 1,
-                             checkpoint_dir=str(ckdir)), device=dev)
+    shutil.rmtree(ckdir, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats(dev)
     _reset_launches()
+    TL.DISPATCH = []
     t0 = time.perf_counter()
-    rep = tr.run(resume=False)
+    tr, rep = train(arch, steps=steps, seq_len=S, global_batch=B, full=True,
+                    ckpt_dir=str(ckdir), opt=opt, checkpoint_every=steps + 1,
+                    device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _read_launches()
+    dropped = _drop_share(TL.DISPATCH)
+    TL.DISPATCH = None
     peak = torch.cuda.max_memory_allocated(dev)
     shutil.rmtree(ckdir, ignore_errors=True)
+    cfg = tr.cfg
     want = _train_launches(cfg, steps)
     later = rep.step_s[1:]
     p50 = _pct(later, 0.5)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in
              tr.data.batch(steps).items()}
-    loss, grads = TS.loss_and_grads(tr.state["params"], cfg, batch)
+    mi = MeshInfo(tr.mesh, ("data",), "model")
+    loss, grads = TS.loss_and_grads(tr.state["params"], cfg, batch,
+                                    TS.make_moe_fn(mi))
     named = {}
     bad = []
     for (name, stacked, _), g in zip(walk(tr.state["params"]), grads):
@@ -1825,7 +1873,14 @@ def phase_train(dev, arch):
     n_leaves = len(grads)
     del grads, loss, batch
     finite = all(map(math.isfinite, rep.losses))
-    emit({"phase": "train_main_path", "arch": cfg.name, "full": True,
+    emit({"phase": "train_main_path", "card": card, "arch": cfg.name,
+          "full": True,
+          "entry": "repro_torch.launch.train.train -> Trainer.run",
+          "mesh": list(tr.mesh.shape), "group": _group_backend(),
+          "moe": "moe_ep" if cfg.num_experts else None,
+          "capacity_factor": cfg.capacity_factor if cfg.num_experts
+          else None, "capacity_slots": TL.moe_capacity(cfg, B * S)
+          if cfg.num_experts else None, "dropped_pair_share": dropped,
           "param_dtype": cfg.param_dtype, "params_b":
           cfg.param_counts()[0] / 1e9, "state_dtype": opt.state_dtype,
           "state_dtype_why": spec["why"], "batch": B, "seq_len": S,
@@ -1853,6 +1908,191 @@ def phase_train(dev, arch):
     del tr, rep
     _release()
     return launches
+
+
+def _group_backend() -> str:
+    import torch.distributed as dist
+    return str(dist.get_backend())
+
+
+# one full-width OLMoE MoE layer for moe_ep_vs_plain: train_4k's 4,096
+# tokens, the published widths, bfloat16, capacity factor 1.25
+MOE_EP_LAYER = dict(T=4096, seed=0)
+
+
+def _moe_ep_layer_inputs(cfg, T, seed):
+    """Seeded inputs of one MoE layer on the CPU.  The hidden states
+    share a common direction, as a trained model's do, so the experts'
+    loads are uneven and pairs drop.  x is a multiple of 2**-6 in (-1,
+    1) and the router a multiple of 2**-8 in [-1/8, 1/8]: every product
+    is a multiple of 2**-14 and every sum of 2,048 of them stays below
+    2**8, so the float32 logits are exact on both devices and the two
+    routings are the same function of the same numbers."""
+    import torch
+    D, E, F = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    g = torch.Generator().manual_seed(seed)
+    shared = torch.randn(D, generator=g)
+    x = 0.15 * shared + 0.5 * torch.randn(T, D, generator=g)
+    x = (x * 64).round().clamp(-63, 63) / 64
+    router = ((0.03 * torch.randn(D, E, generator=g)) * 256).round() \
+        .clamp(-32, 32) / 256
+    dt = getattr(torch, cfg.param_dtype)
+    p = {"router": router,
+         "wg": (0.02 * torch.randn(E, D, F, generator=g)).to(dt),
+         "wu": (0.02 * torch.randn(E, D, F, generator=g)).to(dt),
+         "wd": (0.02 * torch.randn(E, F, D, generator=g)).to(dt)}
+    up = torch.randn(T, D, generator=g)
+    return p, x.to(dt).reshape(1, T, D), up.reshape(1, T, D)
+
+
+def _moe_ep_grads(cfg, p, x, up, dev):
+    """``moe_ep`` on a one-rank mesh on ``dev``: its output, the
+    gradients of sum(y * up) in x and the four leaves, and the dispatch
+    that call recorded (``buf_tok``, per-expert counts)."""
+    import torch
+    from repro_torch.models import layers as TL
+    mi = _mesh_info(dev)
+    p = {k: v.to(dev).requires_grad_(True) for k, v in p.items()}
+    x = x.to(dev).requires_grad_(True)
+    TL.DISPATCH = []
+    y = TL.moe_ep(p, cfg, x, mesh=mi.mesh, ep_axis=mi.ep_axis)
+    (buf_tok, counts, _, _, _), = TL.DISPATCH
+    TL.DISPATCH = None
+    grads = torch.autograd.grad((y.float() * up.to(dev)).sum(),
+                                [x] + [p[k] for k in sorted(p)])
+    names = ["x"] + sorted(p)
+    return (y.detach().cpu(), {n: g.cpu() for n, g in zip(names, grads)},
+            buf_tok.cpu(), counts.cpu())
+
+
+def phase_moe_ep_vs_plain(dev, card):
+    """``moe_ep`` on the card (a one-rank NCCL mesh; the router is the
+    moe_route kernel) against the same function on the CPU (a one-rank
+    gloo mesh; the router's plain version) for one full-width OLMoE MoE
+    layer (``MOE_EP_LAYER``: T 4,096, D 2,048, E 64, k 8, F 1,024,
+    bfloat16, capacity 640 slots an expert): ``buf_tok`` and the
+    per-expert pair and drop counts exactly equal, the output within the
+    serving checks' bfloat16 tolerance (3e-2), and the gradients of x,
+    the router and the three expert leaves within 3e-2 of the CPU's
+    largest (the router's is float32, but it sums the bfloat16 expert
+    outputs); all non-zero.  Prints the share of dropped (token, expert)
+    pairs."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as TL
+    cfg = get_config(SERVE_ARCH)
+    T = MOE_EP_LAYER["T"]
+    p, x, up = _moe_ep_layer_inputs(cfg, T, MOE_EP_LAYER["seed"])
+    t0 = time.perf_counter()
+    y, g, buf, counts = _moe_ep_grads(cfg, p, x, up, dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    y0, g0, buf0, counts0 = _moe_ep_grads(cfg, p, x, up, "cpu")
+    cpu_s = time.perf_counter() - t0
+    cap = TL.moe_capacity(cfg, T)
+    dropped = (counts - cap).clamp(min=0)
+    same = bool(torch.equal(buf, buf0) and torch.equal(counts, counts0))
+    y_err = float((y.float() - y0.float()).abs().max())
+    y_ok = bool(torch.allclose(y.float(), y0.float(), rtol=3e-2, atol=3e-2))
+    grads = {}
+    for n in g0:
+        a, b = g[n].float(), g0[n].float()
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        grads[n] = {"max_abs_err": err, "cpu_max_abs": scale,
+                    "ok": err <= 3e-2 * scale and scale > 0
+                    and float(a.abs().max()) > 0}
+    ok = same and y_ok and all(v["ok"] for v in grads.values())
+    emit({"phase": "moe_ep_vs_plain", "card": card, "arch": cfg.name,
+          "shape": {"T": T, "D": cfg.d_model, "E": cfg.num_experts,
+                    "k": cfg.num_experts_per_tok, "F": cfg.moe_d_ff},
+          "dtype": cfg.param_dtype, "capacity_factor": cfg.capacity_factor,
+          "capacity_slots": cap, "buf_tok_and_counts_equal": same,
+          "pairs": int(counts.sum()), "dropped_pairs": int(dropped.sum()),
+          "dropped_pair_share": float(dropped.sum()) / float(counts.sum()),
+          "experts_over_capacity": int((dropped > 0).sum()),
+          "max_expert_load": int(counts.max()),
+          "y_max_abs_err": y_err, "y_tolerance": 3e-2, "grads": grads,
+          "grad_tolerance": "3e-2 x the CPU's max |grad| per leaf",
+          "card_s": card_s, "cpu_s": cpu_s, "ok": ok})
+    if not ok:
+        fail(f"moe_ep on the card differs from the CPU: dispatch equal "
+             f"{same}, y err {y_err}, grads {grads}")
+
+
+def phase_launch_train_market(dev, card):
+    """``launch.train.market_scenario`` (``tests/test_system.py``'s
+    scenario: trainA holds both leaves for 8 steps, a rival outbids it
+    for one, it resumes to 16, the rival leaves and trainA re-bids and
+    resumes to 24) with reduced OLMoE (float32) on the card with
+    ``max_devices`` 1, and the same scenario on the CPU, each of whose
+    runs resumes from the card's checkpoint (step 0, the seeded initial
+    state; then the card's steps 8 and 16, copied over the CPU's own
+    after each run): float32 Adam at lr 1e-2 turns the devices' rounding
+    into drift over 24 steps, so each run is held to a CPU run from the
+    same state.  Must hold: 24 steps done, a restore per run, each run's
+    losses equal to the CPU's within 1e-5 (sound runs read 9.5e-7), the
+    loss falls, trainA billed, the router's launches exact.  One card
+    holds one NCCL rank, so the resizes themselves are shown on CPU gloo
+    ranks (``tests/test_torch_launch.py``)."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import market_scenario
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import AdamWConfig, make_train_state
+    cfg = get_config(SERVE_ARCH).reduced()
+    dcfg = DataConfig(cfg.vocab_size, 32, 4, 0)
+    opt = AdamWConfig(lr=1e-2, warmup_steps=4)
+    root = OUT / "market_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    dirs = {"card": root / "card", "cpu": root / "cpu"}
+    state0 = make_train_state(init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu"), opt)
+    for d in dirs.values():
+        CheckpointManager(str(d)).save(0, state0)
+    _reset_launches()
+    reps, bills = market_scenario(cfg, dcfg, opt, str(dirs["card"]), 1, dev)
+    launches = _read_launches()
+
+    def card_state(i):
+        name = f"ckpt_{8 * (i + 1):08d}.npz"
+        shutil.copy(dirs["card"] / name, dirs["cpu"] / name)
+    cpu_reps, cpu_bills = market_scenario(cfg, dcfg, opt, str(dirs["cpu"]),
+                                          1, "cpu", after_run=card_state)
+    shutil.rmtree(root, ignore_errors=True)
+    losses = [r.losses for r in reps]
+    cpu_losses = [r.losses for r in cpu_reps]
+    err = max(abs(a - b) for la, lb in zip(losses, cpu_losses)
+              for a, b in zip(la, lb))
+    want = _train_launches(cfg, 24)
+    steps = [r.steps_done for r in reps]
+    restores = [r.restores for r in reps]
+    bill = bills.get("trainA", 0.0)
+    ok = (steps == [8, 16, 24] and restores == [1, 1, 1]
+          and [len(x) for x in losses] == [8, 8, 8] and err <= 1e-5
+          and losses[2][-1] < losses[0][0] and bill > 0
+          and launches == want)
+    emit({"phase": "launch_train_market", "card": card, "arch": cfg.name,
+          "reduced": True,
+          "entry": "repro_torch.launch.train.market_scenario",
+          "max_devices": 1, "cpu_runs_resume_from": "the card's "
+          "checkpoints at steps 0, 8 and 16", "steps_done": steps,
+          "restores": restores,
+          "resizes": [r.resizes for r in reps], "losses_card": losses,
+          "losses_cpu": cpu_losses, "loss_max_abs_err": err,
+          "loss_tolerance": 1e-5, "bill_trainA": bill,
+          "bill_trainA_cpu": cpu_bills.get("trainA", 0.0),
+          "launches": launches, "expected_launches": want,
+          "resize_note": "one card holds one NCCL rank; the resizes run on "
+                         "CPU gloo ranks (tests/test_torch_launch.py)",
+          "ok": ok})
+    if not ok:
+        fail(f"the market-driven run on the card: steps {steps}, restores "
+             f"{restores}, loss err {err}, bill {bill}, launches "
+             f"{launches} (expected {want})")
 
 
 def _release() -> None:
@@ -2344,14 +2584,17 @@ def main() -> None:
     # this slice's main paths: training on one device
     backward = timed("train_kernels_vs_plain", phase_train_kernels_vs_plain,
                      dev)
+    timed("moe_ep_vs_plain", phase_moe_ep_vs_plain, dev, card)
+    _release()
     for arch in (SERVE_ARCH, SSM_ARCH, "jamba-v0.1-52b"):
         timed(f"reduced_train_{arch}", phase_reduced_train, dev, arch)
     for arch, name in ((SERVE_ARCH, "moe_route"), (SSM_ARCH, "ssd_scan")):
         launches = timed(f"train_{arch.split('-')[0]}", phase_train, dev,
-                         arch)
+                         arch, card)
         entry = next(e for e in kernels if e["name"] == name)
         entry["launches_by_path"][f"{arch} train"] = launches[name]
         entry["backward"] = backward[name]
+    timed("launch_train_market", phase_launch_train_market, dev, card)
     emit({"kernels": kernels})
     emit({"phase": "done", "card": card, "phase_s": phase_s,
           "total_s": round(time.perf_counter() - t0, 3)})

@@ -7,8 +7,9 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
 Builds ``chip_smoke.py``'s training main path for the arch (full width,
 bfloat16 parameters from ``torch.Generator`` seed 0 on the card, the
-``TRAIN_FULL`` batch, AdamW state and learning rate, remat on), takes 2
-steps to warm up, then:
+``TRAIN_FULL`` batch, AdamW state and learning rate, remat on; the
+trainer's step over a one-rank (1, 1) mesh, so the MoE layers run
+``moe_ep``), takes 2 steps to warm up, then:
 
 1. three steps split into their parts on the host clock, each part
    ended by a synchronise: the forward and loss (``loss_fn``), the
@@ -58,6 +59,7 @@ def main() -> None:
     sys.path.insert(0, str(HERE / "src"))
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import model as M
     from repro_torch.models import steps as S
     from repro_torch.optim import AdamWConfig, adamw_update, make_train_state
@@ -77,16 +79,23 @@ def main() -> None:
                 for k, v in data.batch(i).items()} for i in range(6)]
     state = make_train_state(M.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev), opt)
-    step = S.make_train_step(cfg, opt)
+    mi = M.MeshInfo(make_mesh((1, 1), ("data", "model"), dev), ("data",),
+                    "model")
+    step = S.make_train_step(cfg, opt, mi)
+    moe_fn = S.make_moe_fn(mi)
+    warmup_ms = []
     for b in batches[:2]:
-        state, _ = step(state, b)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        float(m["loss"])
+        warmup_ms.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize(dev)
 
     parts = {"forward_loss_ms": [], "backward_ms": [], "adamw_ms": []}
     for b in batches[2:5]:
         leaves = tree_leaves(state["params"])
         t0 = time.perf_counter()
-        loss = M.loss_fn(state["params"], cfg, b)
+        loss = M.loss_fn(state["params"], cfg, b, moe_fn)
         torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
         grads = iter(torch.autograd.grad(loss, leaves))
@@ -98,8 +107,10 @@ def main() -> None:
         t3 = time.perf_counter()
         for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
             parts[key].append(dt * 1e3)
+        del grads, loss          # the iterator holds the gradients
     out = [{"card": card, "arch": arch, **{k: spec[k] for k in (
                 "batch", "seq_len", "state_dtype")},
+            "warmup_step_ms": warmup_ms,
             "parts_median": {k: _median(v) for k, v in parts.items()},
             "parts_all": parts}]
 

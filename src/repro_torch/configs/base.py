@@ -1,14 +1,15 @@
-"""Architecture configuration, a trimmed copy of ``repro.configs.base``.
+"""Architecture and shape configuration, a copy of
+``repro.configs.base``.
 
-It keeps the fields and methods that the serving and one-device
-training paths of the port's architectures read (``layer_plan``,
-``encoder_plan``, ``plan_blocks``, ``param_counts``, ``reduced``), with
+It keeps the fields and methods that the port's serving and training
+paths read (``layer_plan``, ``encoder_plan``, ``plan_blocks``,
+``param_counts``, ``reduced``; the expert-parallel MoE's
+``capacity_factor``, ``moe_psum_dtype`` and ``moe_combine``), and the
+input shapes (``ShapeConfig``, ``SHAPES``, ``applicable_shapes``), with
 the reference's defaults, so that a config built here and one built
-there describe the same model.  Left out, with the code that reads
-them: ``capacity_factor``, ``moe_psum_dtype`` and ``moe_combine`` (the
-expert-parallel MoE), the shape tables and ``applicable_shapes``
-(``launch/``), and ``ssd_compute_dtype`` (a TPU tuning knob that no
-config sets; the port's scan computes in float32, its default).
+there describe the same model.  Left out: ``ssd_compute_dtype`` (a TPU
+tuning knob that no config sets; the port's scan computes in float32,
+its default).
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ class ArchConfig:
     moe_layer_period: int = 1
     first_dense_layers: int = 0
     moe_renormalize: bool = True
+    capacity_factor: float = 1.25  # moe_ep's slots per expert over k T / E
 
     ssm_state: int = 0
     ssm_headdim: int = 64
@@ -72,6 +74,8 @@ class ArchConfig:
     remat: bool = True             # each superblock under checkpoint
     remat_policy: str = "nothing"  # "nothing" | "dots" (save the mm outputs)
     attn_softmax_dtype: str = "float32"
+    moe_psum_dtype: str = "float32"      # moe_ep's scatter-add and combine
+    moe_combine: str = "allreduce"       # "scatter_gather": RS(f32)+AG(bf16)
 
     def __post_init__(self):
         if self.num_heads and not self.head_dim:
@@ -194,6 +198,7 @@ class ArchConfig:
             num_prefix_tokens=8 if self.num_prefix_tokens else 0,
             sliding_window=16 if self.sliding_window else 0,
             param_dtype="float32",
+            capacity_factor=4.0,   # no token drops in tiny tests
         )
         if self.attn_layer_period:
             small["attn_layer_period"] = 4
@@ -202,3 +207,41 @@ class ArchConfig:
             small["local_global_period"] = 2
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+# --------------------------------------------------------------------------
+# Input shapes: every LM arch pairs with these four shapes.
+# --------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    step: str          # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}
+
+
+def long_context_ok(cfg: ArchConfig) -> bool:
+    """long_500k runs only for sub-quadratic archs (SSM, hybrid, or
+    sliding-window dominated); pure full-attention archs skip it."""
+    if cfg.num_heads == 0:              # pure SSM
+        return True
+    if cfg.attn_layer_period:           # hybrid (mostly SSM)
+        return True
+    if cfg.sliding_window and not cfg.enc_dec:
+        return True                     # SWA-dominated (gemma3, danube)
+    return False
+
+
+def applicable_shapes(cfg: ArchConfig) -> List[str]:
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if long_context_ok(cfg):
+        names.append("long_500k")
+    return names

@@ -1,14 +1,16 @@
-"""Layer library of the port, twin of ``repro.models.layers`` for the
-layers the serving paths run: attention (GQA / MQA, sliding window,
-prefix-LM, cross-attention), the dense MLP, the MoE layer and the
-Mamba2 (SSD) block.
+"""Layer library of the port, twin of ``repro.models.layers``: attention
+(GQA / MQA, sliding window, prefix-LM, cross-attention), the dense MLP,
+the MoE layers (``moe_dense``, every expert for every token, which
+serving runs; ``moe_ep``, the expert-parallel capacity-limited one,
+which a train step over a mesh runs) and the Mamba2 (SSD) block.
 
-Functions keep the reference's names, arguments and layouts.  Three of
+Functions keep the reference's names, arguments and layouts.  Four of
 them reach the port's kernels: ``attention_decode`` calls
 ``kernels.decode_attention.ops.decode_attention`` for its attention
 core (self- and cross-attention alike), ``moe_dense`` takes its top-k
 and its dense combine weights from ``kernels.moe_route.ops.route_dense``
-(one launch) and ``ssd_block`` calls ``kernels.ssd_scan.ops.ssd_scan``
+(one launch), ``moe_ep`` its top-k from the same launch, and
+``ssd_block`` calls ``kernels.ssd_scan.ops.ssd_scan``
 (the CUDA kernels on CUDA tensors, their plain versions on CPU tensors).
 Those two are ``autograd.Function``s, so training reaches the router
 and every SSM input leaf through the kernels as well (the router's
@@ -30,9 +32,11 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import scatter_drop
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.moe_route import ops as route_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -219,6 +223,218 @@ def moe_dense(p: Dict[str, torch.Tensor], cfg: ArchConfig,
     y = torch.bmm(F.silu(g) * u, p["wd"])        # (E, T, D)
     out = torch.einsum("te,etd->td", dense_w, y)
     return out.reshape(B, S, D)
+
+
+class _FromEpGroup(torch.autograd.Function):
+    """Identity forward; the backward sums each gradient over the ep
+    group.  The transpose of the reference's ``shard_map`` in-specs for
+    inputs replicated over the ep axis (x, the router): each ep rank's
+    gradient holds only its own experts' share."""
+
+    @staticmethod
+    def forward(ctx, group, *ts):
+        ctx.group = group
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        out = []
+        for g in gs:
+            if g is not None:
+                g = g.contiguous()
+                dist.all_reduce(g, group=ctx.group)
+            out.append(g)
+        return (None, *out)
+
+
+class _CombineOverEp(torch.autograd.Function):
+    """The combine of the ep ranks' partial outputs (T, D): an all-reduce
+    in the partials' dtype, or (``scatter_gather``) a reduce-scatter in
+    it and an all-gather in bfloat16.  Every ep rank then runs the same
+    downstream, so the backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, out, group, scatter_gather: bool):
+        ctx.dtype = out.dtype
+        if scatter_gather:
+            n = dist.get_world_size(group)
+            chunk = out.new_empty((out.shape[0] // n,) + out.shape[1:])
+            dist.reduce_scatter_tensor(chunk, out.contiguous(), group=group)
+            full = out.new_empty(out.shape, dtype=torch.bfloat16)
+            dist.all_gather_into_tensor(full, chunk.to(torch.bfloat16),
+                                        group=group)
+            return full
+        out = out.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None, None
+
+
+def _take_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``src[idx]`` with a zero row where ``idx == len(src)``."""
+    n = src.shape[0]
+    out = src.index_select(0, idx.clamp(max=n - 1))
+    return out.masked_fill_((idx >= n)[:, None], 0)
+
+
+def _sum_rows(src: torch.Tensor, pair_slot: torch.Tensor) -> torch.Tensor:
+    """(T, k) -> (T, D): each token's sum of ``src``'s rows at its k
+    slots, added left to right (a slot of ``len(src)`` adds nothing)."""
+    out = _take_rows(src, pair_slot[:, 0])
+    for r in range(1, pair_slot.shape[1]):
+        out.add_(_take_rows(src, pair_slot[:, r]))
+    return out
+
+
+class _TokensToSlots(torch.autograd.Function):
+    """The dispatch gather ``x[buf_tok]`` (an empty slot reads zeros).
+    Its transpose is ``_SlotsToTokens``: every filled slot holds one
+    (token, expert) pair, so both directions are gathers.  (Autograd's
+    own backward of the gather scatter-adds every empty slot into one
+    spill row, one after another.)"""
+
+    @staticmethod
+    def forward(ctx, x, buf_tok, pair_slot):
+        ctx.save_for_backward(pair_slot)
+        return _take_rows(x, buf_tok)
+
+    @staticmethod
+    def backward(ctx, g):
+        pair_slot, = ctx.saved_tensors
+        return _sum_rows(g, pair_slot), None, None
+
+
+class _SlotsToTokens(torch.autograd.Function):
+    """The combine: each token's sum of its slots' rows in ``pair_slot``
+    order; the transpose of ``_TokensToSlots``."""
+
+    @staticmethod
+    def forward(ctx, rows, pair_slot, buf_tok):
+        ctx.save_for_backward(buf_tok)
+        return _sum_rows(rows, pair_slot)
+
+    @staticmethod
+    def backward(ctx, g):
+        buf_tok, = ctx.saved_tensors
+        return _take_rows(g, buf_tok), None, None
+
+
+def moe_capacity(cfg: ArchConfig, tokens: int) -> int:
+    """Slots per expert for ``tokens`` local tokens: ``k T / E`` times
+    ``capacity_factor``, rounded up to 8, at least 8, at most T."""
+    cap = int(tokens * cfg.num_experts_per_tok / cfg.num_experts
+              * cfg.capacity_factor)
+    cap = max(8, -(-cap // 8) * 8)
+    return min(cap, tokens)
+
+
+def moe_dispatch(idx: torch.Tensor, E: int, cap: int, lo: int, El: int):
+    """Sort-based dispatch of one rank's (T, k) ids of E experts to its
+    experts ``lo .. lo + El - 1``, ``cap`` slots each, as the reference's
+    ``moe_ep`` computes it: ``order`` (T * k,), the flat (token, expert)
+    pairs sorted by expert (stable); ``slot`` (T * k,), each sorted
+    pair's slot, or ``El * cap`` (the spill slot past the end) where the
+    pair is another rank's or past its expert's capacity; ``buf_tok``
+    (El * cap,), the token in each slot (``T`` where it is empty);
+    ``counts`` (E,), the pairs routed to each expert; and ``pair_slot``
+    (T, k), each token's slots in ascending expert order (``El * cap``
+    where the pair has none), the order in which the reference's
+    scatter-add reaches them."""
+    T, k = idx.shape
+    eid = idx.reshape(-1).long()
+    order = torch.argsort(eid, stable=True)
+    sorted_eid = eid[order]
+    # a scatter-add, not bincount: on CUDA bincount reads its max on the host
+    counts = torch.zeros(E, dtype=torch.long, device=idx.device) \
+        .scatter_add_(0, eid, torch.ones_like(eid))
+    offsets = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(T * k, device=idx.device) - offsets[sorted_eid]
+    local = (sorted_eid >= lo) & (sorted_eid < lo + El) & (rank < cap)
+    slot = torch.where(local, (sorted_eid - lo) * cap + rank, El * cap)
+    # the reference sets at El * cap inside a buffer one longer and cuts
+    # it; scatter_drop sends that index to its own spill slot
+    buf_tok = scatter_drop(torch.full((El * cap,), T, dtype=torch.long,
+                                      device=idx.device), slot, order // k)
+    pair_slot = torch.empty_like(slot)
+    pair_slot[order] = slot
+    by_expert = torch.argsort(idx, dim=1)       # a token's experts differ
+    pair_slot = torch.gather(pair_slot.reshape(T, k), 1, by_expert)
+    return order, slot, buf_tok, counts, pair_slot
+
+
+# Set to a list to record the dispatch (chip_smoke and the tests do):
+# moe_ep then appends, per call, ``(buf_tok, counts, cap, lo, El)``, its
+# own dispatch's slot tokens and per-expert pair counts (device tensors)
+# and this rank's capacity and expert range.
+DISPATCH = None
+
+
+def dropped_pairs(record) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's dropped (token, expert) pairs and all its pairs in one
+    ``DISPATCH`` record, as 0-d tensors."""
+    _, counts, cap, lo, El = record
+    mine = counts[lo:lo + El]
+    return (mine - cap).clamp(min=0).sum(), mine.sum()
+
+
+def moe_ep(p: Dict[str, torch.Tensor], cfg: ArchConfig, x: torch.Tensor, *,
+           mesh, ep_axis: str) -> torch.Tensor:
+    """Expert-parallel MoE, one rank's part of the reference's
+    ``shard_map``: ``x`` (B, S, D) is this rank's batch block (all of the
+    batch when it is not sharded) and ``p`` holds this rank's ``El = E /
+    ep`` experts (``wg``/``wu`` (El, D, F), ``wd`` (El, F, D); the
+    router whole).
+
+    Dispatch is sort-based with a static per-expert capacity from the
+    local token count (``moe_capacity``): a (token, expert) pair past its
+    expert's last slot is dropped.  The router is the moe_route kernel
+    (``route_ops.route_dense``; its dense weights are not used).  Each
+    rank computes its experts on their slots (three ``bmm``), sums each
+    token's weighted slot rows in ``moe_psum_dtype`` in the reference's
+    scatter-add order (``_SlotsToTokens``), and the partial outputs are
+    combined over the ep group (``_CombineOverEp``).  The reference also
+    takes ``dp_axes`` and ``batch_sharded``, which say how ``x`` was
+    cut; here ``x`` is already this rank's block and the capacity needs
+    only its size."""
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    group = mesh.get_group(ep_axis)
+    ep_size = dist.get_world_size(group)
+    j = mesh.get_local_rank(ep_axis)
+    if E % ep_size:
+        raise ValueError(f"{E} experts over an ep axis of {ep_size}")
+    El = E // ep_size
+    if p["wg"].shape[0] != El:
+        raise ValueError(f"moe_ep takes this rank's {El} experts; got "
+                         f"{p['wg'].shape[0]}")
+    B, S, D = x.shape
+    T = B * S
+    cap = moe_capacity(cfg, T)
+    xf, router = _FromEpGroup.apply(group, x.reshape(T, D), p["router"])
+    logits = xf.to(router.dtype) @ router        # JAX: bf16 @ f32 -> f32
+    w, idx, _ = route_ops.route_dense(logits, k, cfg.moe_renormalize,
+                                      torch.float32)
+    lo = j * El
+    order, slot, buf_tok, counts, pair_slot = moe_dispatch(idx, E, cap, lo,
+                                                           El)
+    if DISPATCH is not None:
+        DISPATCH.append((buf_tok, counts, cap, lo, El))
+    xg = _TokensToSlots.apply(xf, buf_tok, pair_slot).reshape(El, cap, D)
+    g = torch.bmm(xg, p["wg"])
+    u = torch.bmm(xg, p["wu"])
+    y = torch.bmm(F.silu(g) * u, p["wd"])        # (El, cap, D)
+    wslot = scatter_drop(torch.zeros(El * cap, dtype=torch.float32,
+                                     device=x.device),
+                         slot, w.reshape(-1)[order])
+    yw = y.reshape(El * cap, D) * wslot[:, None].to(y.dtype)
+    psum_dt = getattr(torch, cfg.moe_psum_dtype)
+    out = _SlotsToTokens.apply(yw.to(psum_dt), pair_slot, buf_tok)
+    scatter_gather = (cfg.moe_combine == "scatter_gather"
+                      and T % ep_size == 0 and ep_size > 1)
+    out = _CombineOverEp.apply(out, group, scatter_gather)
+    return out.to(x.dtype).reshape(B, S, D)
 
 
 # --------------------------------------------------------------------------

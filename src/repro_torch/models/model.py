@@ -1,8 +1,10 @@
-"""Model assembly of the port, twin of ``repro.models.model`` for the
-serving and one-device training paths: parameter init (and its
-storage-free template), the unrolled forward (with the vision prefix,
-the audio encoder and, for training, each superblock rematerialised),
-the loss, prefill, one decode step, and the cache layout.
+"""Model assembly of the port, twin of ``repro.models.model``: parameter
+init (and its storage-free template), the unrolled forward (with the
+vision prefix, the audio encoder and, for training, each superblock
+rematerialised), the loss, prefill, one decode step, and the cache
+layout.  Every MoE layer runs ``moe_fn`` (``layers.moe_dense`` by
+default, as serving runs it; a train step over a mesh passes
+``layers.moe_ep``, see ``models/steps.py``).
 
 Parameters are plain dicts of tensors in the reference's layout::
 
@@ -29,7 +31,8 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils import checkpoint as ckpt
@@ -39,6 +42,17 @@ from repro_torch.device import DeviceLike, recip32, resolve_device
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
+MoeFn = Callable[..., torch.Tensor]
+
+
+@dataclass(frozen=True)
+class MeshInfo:
+    """How a step is distributed. None => single-device path.  The
+    reference's ``batch_sharded`` is left out: each rank holds its own
+    batch block, so nothing reads it."""
+    mesh: Any                     # a torch DeviceMesh
+    dp_axes: Tuple[str, ...]
+    ep_axis: str
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -288,17 +302,18 @@ def abstract_params(cfg: ArchConfig) -> Params:
 # --------------------------------------------------------------------------
 # One layer, the stack, the encoder, forward
 # --------------------------------------------------------------------------
-def _ffn(p, cfg: ArchConfig, spec: LayerSpec, x):
+def _ffn(p, cfg: ArchConfig, spec: LayerSpec, x, moe_fn: MoeFn):
     """The layer's MoE or dense MLP on the normed residual, or None."""
     if spec.moe:
-        return L.moe_dense(p["moe"], cfg, L.rms_norm(x, p["ln2"]))
+        return moe_fn(p["moe"], cfg, L.rms_norm(x, p["ln2"]))
     if cfg.d_ff:
         return L.mlp(p["mlp"], cfg, L.rms_norm(x, p["ln2"]))
     return None
 
 
 def _apply_layer(p, cfg: ArchConfig, spec: LayerSpec, x, positions, *,
-                 prefix_len: int = 0, enc_out: Optional[torch.Tensor] = None,
+                 moe_fn: MoeFn, prefix_len: int = 0,
+                 enc_out: Optional[torch.Tensor] = None,
                  causal: bool = True, collect: bool = False,
                  max_len: int = 0):
     """Returns (x, cache_entry|None)."""
@@ -327,7 +342,7 @@ def _apply_layer(p, cfg: ArchConfig, spec: LayerSpec, x, positions, *,
                             causal=False)
         if collect:
             entry["cross_k"], entry["cross_v"] = ckv
-    f = _ffn(p, cfg, spec, x)
+    f = _ffn(p, cfg, spec, x, moe_fn)
     if f is not None:
         x = x + f
     return x, entry
@@ -365,8 +380,8 @@ def _remat(cfg: ArchConfig):
                              context_fn=context_fn)
 
 
-def _run_stack(params, cfg, x, positions, *, prefix_len, enc_out, collect,
-               max_len, remat=False):
+def _run_stack(params, cfg, x, positions, *, prefix_len, moe_fn, enc_out,
+               collect, max_len, remat=False):
     """Head + unrolled superblocks + tail.  With ``remat`` each
     superblock runs under ``torch.utils.checkpoint`` (its activations
     are recomputed in the backward); the head and tail layers do not.
@@ -375,7 +390,7 @@ def _run_stack(params, cfg, x, positions, *, prefix_len, enc_out, collect,
     caches: Dict[str, Any] = {"head": [], "blocks": [], "tail": []}
 
     def one(lp, spec, xx):
-        return _apply_layer(lp, cfg, spec, xx, positions,
+        return _apply_layer(lp, cfg, spec, xx, positions, moe_fn=moe_fn,
                             prefix_len=prefix_len, enc_out=enc_out,
                             collect=collect, max_len=max_len)
 
@@ -406,7 +421,8 @@ def _run_stack(params, cfg, x, positions, *, prefix_len, enc_out, collect,
     return x, caches
 
 
-def _encoder_forward(params, cfg: ArchConfig, enc_embeds: torch.Tensor):
+def _encoder_forward(params, cfg: ArchConfig, enc_embeds: torch.Tensor,
+                     moe_fn: MoeFn):
     """The audio encoder: bidirectional layers over the frame
     embeddings, then its final norm."""
     x = enc_embeds.to(_dtype(cfg))
@@ -417,7 +433,8 @@ def _encoder_forward(params, cfg: ArchConfig, enc_embeds: torch.Tensor):
     positions = torch.arange(S, device=x.device).expand(B, S)
     rows = _unstack(params["enc_blocks"][0])
     for spec, lp in zip(eplan, rows):
-        x, _ = _apply_layer(lp, cfg, spec, x, positions, causal=False)
+        x, _ = _apply_layer(lp, cfg, spec, x, positions, moe_fn=moe_fn,
+                            causal=False)
     return L.rms_norm(x, params["enc_final_norm"])
 
 
@@ -428,8 +445,8 @@ def _logits(params, cfg, x):
 
 
 def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
-            *, remat: bool = False, collect_cache: bool = False,
-            max_len: int = 0):
+            *, moe_fn: MoeFn = L.moe_dense, remat: bool = False,
+            collect_cache: bool = False, max_len: int = 0):
     """Logits (B, S_total, V) and, with ``collect_cache``, the caches;
     ``remat`` rematerialises each superblock (``_run_stack``).
     ``batch`` holds ``tokens`` (B, S) and, for a frontend architecture,
@@ -446,11 +463,13 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
         x = torch.cat([pe, x], dim=1)
         prefix_len = pe.shape[1]
     elif cfg.frontend == "audio_stub":
-        enc_out = _encoder_forward(params, cfg, batch["encoder_embeds"])
+        enc_out = _encoder_forward(params, cfg, batch["encoder_embeds"],
+                                   moe_fn)
     St = x.shape[1]
     positions = torch.arange(St, device=x.device).expand(B, St)
     x, caches = _run_stack(params, cfg, x, positions, prefix_len=prefix_len,
-                           enc_out=enc_out, collect=collect_cache,
+                           moe_fn=moe_fn, enc_out=enc_out,
+                           collect=collect_cache,
                            max_len=max_len, remat=remat)
     return _logits(params, cfg, x), (caches if collect_cache else None)
 
@@ -469,9 +488,10 @@ def lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
     return torch.mean(logz - gold)
 
 
-def loss_fn(params: Params, cfg: ArchConfig, batch) -> torch.Tensor:
+def loss_fn(params: Params, cfg: ArchConfig, batch,
+            moe_fn: MoeFn = L.moe_dense) -> torch.Tensor:
     """The training loss, remat as ``cfg.remat`` says."""
-    logits, _ = forward(params, cfg, batch, remat=cfg.remat)
+    logits, _ = forward(params, cfg, batch, moe_fn=moe_fn, remat=cfg.remat)
     prefix = cfg.num_prefix_tokens if cfg.frontend == "vision_stub" else 0
     return lm_loss(logits, batch["tokens"], prefix)
 
@@ -479,14 +499,15 @@ def loss_fn(params: Params, cfg: ArchConfig, batch) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # Serving: prefill + decode
 # --------------------------------------------------------------------------
-def prefill(params: Params, cfg: ArchConfig, batch, *, max_len: int):
-    logits, cache = forward(params, cfg, batch, collect_cache=True,
-                            max_len=max_len)
+def prefill(params: Params, cfg: ArchConfig, batch, *, max_len: int,
+            moe_fn: MoeFn = L.moe_dense):
+    logits, cache = forward(params, cfg, batch, moe_fn=moe_fn,
+                            collect_cache=True, max_len=max_len)
     return logits[:, -1:, :], cache
 
 
 def decode_step(params: Params, cfg: ArchConfig, cache, tokens: torch.Tensor,
-                pos: int):
+                pos: int, *, moe_fn: MoeFn = L.moe_dense):
     """One decode step.  tokens: (B, 1); pos: host int, the index where
     the new token's KV is written; attends to cache[<= pos] (an SSD layer
     reads only its conv window and state; a decoder's cross-attention
@@ -520,7 +541,7 @@ def decode_step(params: Params, cfg: ArchConfig, cache, tokens: torch.Tensor,
                                            L.rms_norm(xx, lp["ln_x"]),
                                            *ckv, pos, cross_kv=ckv)
             xx = xx + out
-        f = _ffn(lp, cfg, spec, xx)
+        f = _ffn(lp, cfg, spec, xx, moe_fn)
         return xx if f is None else xx + f
 
     for i in range(head):

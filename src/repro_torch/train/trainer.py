@@ -1,19 +1,29 @@
-"""The market-driven trainer of the port, twin of
-``repro.train.trainer`` on one device.
+"""The market-driven, elastic trainer of the port, twin of
+``repro.train.trainer``.
 
 The training loop is the tenant application from LaissezCloud's point
 of view: a ``ResourceBroker`` (fixed, scheduled, or reading a live
-``core.market.Market``) says how many devices the tenant owns, and the
-trainer checkpoints every N steps and resumes from the latest
-checkpoint.  A straggler EWMA of the step time flags slow steps and
-reports them to the broker as a utility drop.
+``core.market.Market``) says how many devices the tenant owns.  On a
+grant or a revoke the trainer re-meshes (a new data-parallel degree)
+and goes on from the same state: the shrink-and-continue behaviour of
+the paper's Table 2; it also checkpoints every N steps and resumes from
+the latest checkpoint (checkpoint-restart).  A straggler EWMA of the
+step time flags slow steps and reports them to the broker as a utility
+drop.
 
-The port trains on one device: a broker that asks for another device
-count makes ``run`` raise ``NotImplementedError``.  The resizes need
-the mesh of ``launch/`` (ROADMAP Queue 1 item 4); the reference builds a
-mesh even for one device, so it runs the expert-parallel MoE where the
-port runs ``moe_dense``.  The reference's ``TrainConfig.log_every`` (read
-nowhere) and ``TrainReport.resizes`` (the port never resizes) are left
+Every rank of the default process group runs ``run`` (one rank, made on
+the fly, when there is no group).  The mesh is ``(n, 1)`` over
+("data", "model") on ranks ``0 .. n - 1``, as the reference's
+``_build`` makes it, so the MoE layers run the reference's
+capacity-limited ``moe_ep`` on one device too.  Only rank 0's broker
+decides: it says ``n`` every step and rank 0 broadcasts it.  Ranks
+outside the mesh sit the step out.  On a resize every rank receives rank
+0's state by broadcast (the reference's host snapshot) and keeps its
+block of it.  Parameters and AdamW state are replicated over "data"
+(DDP; see ``launch/shardings.py``), each rank takes its block of the
+global batch, and only rank 0 writes checkpoints.  Every rank reports
+rank 0's losses.  The reference's ``TrainConfig.log_every`` (read
+nowhere) and ``scan_layers`` (the port's layers run unrolled) are left
 out.
 """
 from __future__ import annotations
@@ -22,18 +32,22 @@ import os
 import tempfile
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch import shardings as sh
+from repro_torch.launch.mesh import ensure_default_group, in_mesh, make_mesh
 from repro_torch.models import model as M
 from repro_torch.models import steps as S
 from repro_torch.optim import (AdamWConfig, abstract_train_state,
                                make_train_state)
+from repro_torch.tree import tree_map
 
 
 @dataclass
@@ -97,6 +111,7 @@ class MarketBroker(ResourceBroker):
 @dataclass
 class TrainReport:
     losses: List[float] = field(default_factory=list)
+    resizes: List[Tuple[int, int, int]] = field(default_factory=list)
     restores: int = 0
     stragglers: int = 0
     steps_done: int = 0
@@ -117,15 +132,50 @@ class Trainer:
         self.device = resolve_device(device)
         self.data = SyntheticTokens(data_cfg)
         self.ckpt = CheckpointManager(self.tcfg.checkpoint_dir)
-        self._step = S.make_train_step(cfg, self.opt)
+        self.mesh = None
+        self._train_step = None
+        self._place = None          # the state's placement on the mesh
+        self._bspec = None          # the batch's
         self.state = None
 
-    def _need_one_device(self, step: int, n_devices: int) -> None:
-        if n_devices != 1:
-            raise NotImplementedError(
-                f"the broker asks for {n_devices} devices at step {step}; "
-                "the port trains on one device (resizes need launch/, "
-                "ROADMAP Queue 1 item 4)")
+    # ------------------------------------------------------------ meshes
+    def _build(self, n_devices: int, state: Optional[Any]) -> None:
+        """(Re)build the mesh and the step over ``n_devices`` ranks and
+        keep this rank's block of ``state`` (None outside the mesh)."""
+        tp = 1                                    # DP-only elastic
+        self.mesh = make_mesh((n_devices, tp), ("data", "model"),
+                              self.device)
+        mi = M.MeshInfo(self.mesh, ("data",), "model")
+        self._train_step = S.make_train_step(self.cfg, self.opt, mi) \
+            if in_mesh(self.mesh) else None
+        self._place = sh.replicated_over(
+            sh.train_state_specs(self.cfg, self.mesh), mi.dp_axes)
+        self._bspec = sh.batch_specs(self.cfg, self.mesh,
+                                     self.data_cfg.global_batch)
+        self.state = sh.local_shards(state, self._place, self.mesh) \
+            if state is not None and in_mesh(self.mesh) else None
+
+    def _step(self, state, batch):
+        return self._train_step(state, batch)
+
+    def _agree(self, value, dtype=torch.int64):
+        """Rank 0's ``value`` on every rank."""
+        t = torch.tensor(value, dtype=dtype, device=self.device)
+        dist.broadcast(t, src=0)
+        return t.item()
+
+    def _template(self):
+        return abstract_train_state(M.abstract_params(self.cfg), self.opt)
+
+    def _share(self, state):
+        """Rank 0's whole state on every rank (each leaf broadcast)."""
+        def leaf(t):
+            if dist.get_rank() != 0:
+                t = torch.empty(t.shape, dtype=t.dtype, device=self.device)
+            dist.broadcast(t.detach(), src=0)
+            return t
+        return tree_map(leaf, state if dist.get_rank() == 0
+                        else self._template())
 
     def _init_state(self):
         """Fresh parameters drawn on the device from ``torch.Generator``
@@ -138,39 +188,56 @@ class Trainer:
     def run(self, resume: bool = True) -> TrainReport:
         rep = TrainReport()
         tc = self.tcfg
-        self._need_one_device(0, self.broker.current_devices(0))
-        start = 0
-        if resume and self.ckpt.latest_step() is not None:
-            start = self.ckpt.latest_step()
-            template = abstract_train_state(M.abstract_params(self.cfg),
-                                            self.opt)
-            self.state = self.ckpt.restore(start, template, self.device)
+        ensure_default_group(self.device)
+        rank0 = dist.get_rank() == 0
+        n_dev = self._agree(self.broker.current_devices(0))
+        latest = self.ckpt.latest_step() if resume and rank0 else None
+        start = self._agree(-1 if latest is None else latest)
+        self._build(n_dev, None)
+        if in_mesh(self.mesh):
+            if start >= 0:
+                self.state = sh.local_shards(
+                    self.ckpt.restore(start, self._template(), self.device),
+                    self._place, self.mesh)
+            else:
+                self.state = sh.local_shards(self._init_state(),
+                                             self._place, self.mesh)
+        if start >= 0:
             rep.restores += 1
-        else:
-            self.state = self._init_state()
+        start = max(start, 0)
         sync = (torch.cuda.synchronize if self.device.type == "cuda"
                 else (lambda: None))
         ewma = None
         for step in range(start, tc.steps):
-            self._need_one_device(step, self.broker.current_devices(step))
-            batch = {k: torch.from_numpy(v).to(self.device)
-                     for k, v in self.data.batch(step).items()}
-            sync()
-            t0 = time.perf_counter()
-            self.state, metrics = self._step(self.state, batch)
-            loss = float(metrics["loss"])
-            dt = time.perf_counter() - t0
-            if ewma is None:
-                ewma = dt
-            elif step > start + 2:
-                if dt > tc.straggler_factor * ewma:
-                    rep.stragglers += 1
-                    self.broker.report_degradation(step, dt / ewma)
-                ewma += 0.2 * (dt - ewma)
-            rep.losses.append(loss)
+            want = self._agree(self.broker.current_devices(step))
+            if want != n_dev:
+                # elastic re-mesh: rank 0's state -> rebuild -> go on
+                rep.resizes.append((step, n_dev, want))
+                n_dev = want
+                self._build(n_dev, self._share(self.state))
+            dt = 0.0
+            loss = float("nan")
+            if in_mesh(self.mesh):
+                batch = sh.local_shards(
+                    {k: torch.from_numpy(v) for k, v in
+                     self.data.batch(step).items()}, self._bspec, self.mesh)
+                batch = {k: v.to(self.device) for k, v in batch.items()}
+                sync()
+                t0 = time.perf_counter()
+                self.state, metrics = self._step(self.state, batch)
+                loss = float(metrics["loss"])
+                dt = time.perf_counter() - t0
+                if ewma is None:
+                    ewma = dt
+                elif step > start + 2:
+                    if dt > tc.straggler_factor * ewma:
+                        rep.stragglers += 1
+                        self.broker.report_degradation(step, dt / ewma)
+                    ewma += 0.2 * (dt - ewma)
+            rep.losses.append(self._agree(loss, torch.float64))
             rep.step_s.append(dt)
             rep.steps_done = step + 1
-            if (step + 1) % tc.checkpoint_every == 0:
+            if (step + 1) % tc.checkpoint_every == 0 and rank0:
                 self.ckpt.save(step + 1, self.state,
                                blocking=not tc.async_checkpoint)
         self.ckpt.wait()

@@ -949,6 +949,131 @@ def test_reduced_train_on_card_matches_cpu(arch):
                                                   for s in plan)
 
 
+def _moe_ep_run(cfg, p, x, dev):
+    """``moe_ep`` on a one-rank (1, 1) mesh on ``dev`` (NCCL on the card,
+    gloo on the CPU) and the dispatch it recorded (``DISPATCH``)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as TL
+    mesh = make_mesh((1, 1), ("data", "model"), dev)
+    p = {k: v.to(dev) for k, v in p.items()}
+    x = x.to(dev)
+    TL.DISPATCH = []
+    try:
+        y = TL.moe_ep(p, cfg, x, mesh=mesh, ep_axis="model")
+        (buf_tok, counts, _, _, _), = TL.DISPATCH
+    finally:
+        TL.DISPATCH = None
+    return y.cpu(), buf_tok.cpu(), counts.cpu()
+
+
+@pytest.mark.cuda
+def test_moe_ep_on_card_matches_cpu():
+    """``moe_ep`` (reduced OLMoE in bfloat16, capacity factor 1.0, so
+    pairs drop) on a one-rank NCCL mesh equals its run on the CPU:
+    ``buf_tok`` and the per-expert counts exactly, the output within the
+    serving checks' bfloat16 bound (3e-2).  x and the router are
+    multiples of 2**-6 and 2**-8, so the float32 logits are exact sums on
+    both devices and the routing is the same."""
+    _need_cuda()
+    from repro_torch.configs import get_config
+    cfg = get_config("olmoe-1b-7b").reduced(param_dtype="bfloat16",
+                                            capacity_factor=1.0)
+    g = torch.Generator().manual_seed(0)
+    D, E, F = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    x = ((0.3 * torch.randn(D, generator=g)
+          + 0.5 * torch.randn(4, 32, D, generator=g)) * 64).round() \
+        .clamp(-63, 63) / 64
+    p = {"router": ((0.1 * torch.randn(D, E, generator=g)) * 256).round()
+         .clamp(-32, 32) / 256}
+    for k, shape in (("wg", (E, D, F)), ("wu", (E, D, F)), ("wd", (E, F, D))):
+        p[k] = (0.1 * torch.randn(shape, generator=g)).to(torch.bfloat16)
+    x = x.to(torch.bfloat16)
+    y, buf, counts = _moe_ep_run(cfg, p, x, "cuda")
+    y0, buf0, counts0 = _moe_ep_run(cfg, p, x, "cpu")
+    assert torch.equal(buf, buf0) and torch.equal(counts, counts0)
+    assert int((counts0 - 32).clamp(min=0).sum()) > 0
+    torch.testing.assert_close(y.float(), y0.float(), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.cuda
+def test_trainer_on_card_matches_cpu(tmp_path):
+    """The ``Trainer`` on a one-rank NCCL group (its (1, 1) mesh: the MoE
+    layers run ``moe_ep``) takes 4 reduced-OLMoE steps (float32, capacity
+    factor 1.0) equal to the CPU's within 1e-4, both resumed from one
+    step-0 checkpoint; the router launches twice per layer a step."""
+    _need_cuda()
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels.moe_route import kernel as RK
+    from repro_torch.models import model as TM
+    from repro_torch.optim import AdamWConfig, make_train_state
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("olmoe-1b-7b").reduced(capacity_factor=1.0)
+    opt = AdamWConfig(lr=1e-2, warmup_steps=2)
+    state0 = make_train_state(TM.init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu"), opt)
+    reps, launches = [], []
+    for dev in ("cuda", "cpu"):
+        CheckpointManager(str(tmp_path / dev)).save(0, state0)
+        before = RK.LAUNCHES
+        reps.append(Trainer(cfg, DataConfig(cfg.vocab_size, 32, 4, 0), opt,
+                            TrainConfig(steps=4, checkpoint_every=100,
+                                        checkpoint_dir=str(tmp_path / dev)),
+                            device=dev).run(resume=True))
+        launches.append(RK.LAUNCHES - before)
+    assert [r.restores for r in reps] == [1, 1]
+    np.testing.assert_allclose(reps[0].losses, reps[1].losses, rtol=0,
+                               atol=1e-4)
+    assert launches == [4 * 2 * sum(s.moe for s in cfg.layer_plan()), 0]
+
+
+@pytest.mark.cuda
+def test_trainer_resizes_across_cards(tmp_path):
+    """The ``Trainer`` under ``ScheduledBroker({0: 1, 4: 2}, 1)`` on two
+    ranks, each on its own card (NCCL for CUDA tensors; ``spawn_local``
+    sets no ``LOCAL_RANK``, so each rank binds the card of its rank),
+    grows from one card to two at step 4: both ranks report ``resizes ==
+    [(4, 1, 2)]``, the replicas' states are bit-equal after each of steps
+    4-7, and the losses equal those of the same run on two CPU gloo
+    ranks within 1e-4 (reduced OLMoE, float32, capacity factor 1.0; both
+    resumed from one step-0 checkpoint).  Needs two cards."""
+    _need_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (one NCCL rank per card)")
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import local
+    from repro_torch.launch.mesh import spawn_local
+    from repro_torch.models import model as TM
+    from repro_torch.optim import AdamWConfig, make_train_state
+    cfg = get_config("olmoe-1b-7b").reduced(capacity_factor=1.0)
+    opt = AdamWConfig(lr=1e-2, warmup_steps=2)
+    state0 = make_train_state(TM.init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu"), opt)
+    got = {}
+    for dev, backend in (("cuda", "cpu:gloo,cuda:nccl"), ("cpu", "gloo")):
+        CheckpointManager(str(tmp_path / dev)).save(0, state0)
+        out = tmp_path / f"out_{dev}"
+        out.mkdir()
+        spawn_local(local.trainer_rank, 2, cfg,
+                    DataConfig(cfg.vocab_size, 32, 4, 0), opt, {0: 1, 4: 2},
+                    8, str(tmp_path / dev), str(out), dev, timeout=120,
+                    backend=backend)
+        got[dev] = [np.load(out / f"rank{r}.npz") for r in range(2)]
+    card = got["cuda"]
+    assert [int(g["card"]) for g in card] == [0, 1]
+    for g in card + got["cpu"]:
+        assert g["resizes"].tolist() == [[4, 1, 2]]
+        assert int(g["restores"]) == 1
+    assert card[1]["digest_steps"].tolist() == [4, 5, 6, 7]
+    np.testing.assert_array_equal(card[0]["digests"][4:], card[1]["digests"])
+    np.testing.assert_allclose(card[0]["losses"], got["cpu"][0]["losses"],
+                               rtol=0, atol=1e-4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("renorm", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

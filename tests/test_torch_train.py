@@ -46,8 +46,6 @@ from repro.train.trainer import TrainConfig as JTrainConfig
 from repro.train.trainer import Trainer as JTrainer
 from repro_torch.configs import get_config
 from repro_torch.convert import model_params_from_jax, train_state_from_jax
-from repro_torch.core.market import Market
-from repro_torch.core.topology import build_cluster
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens
 from repro_torch.kernels.moe_route import ops as route_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -55,8 +53,7 @@ from repro_torch.models import model as TM
 from repro_torch.models import steps as TS
 from repro_torch.optim import (AdamWConfig, abstract_train_state,
                                adamw_update, make_train_state)
-from repro_torch.train.trainer import (MarketBroker, ResourceBroker,
-                                       ScheduledBroker, TrainConfig, Trainer)
+from repro_torch.train.trainer import ResourceBroker, TrainConfig, Trainer
 from repro_torch.tree import tree_leaves, walk
 from test_torch_serve import _jax_init, _np_tree
 
@@ -533,33 +530,6 @@ def test_port_checkpoint_restores_in_reference(tmp_path):
     got = JCkpt(str(tmp_path)).restore(5, tmpl)
     for a, b in zip(jax.tree.leaves(got), _torch_leaves(tr.state)):
         np.testing.assert_array_equal(np.asarray(a), b.detach().numpy())
-
-
-def test_brokers_one_device_only(tmp_path):
-    """A resize raises: ``ScheduledBroker({0: 1, 8: 2}, 1)`` (the
-    reference's elastic test) at step 8, and a mesh for the train step.
-    ``MarketBroker`` over the port's ``Market`` trains while the tenant's
-    grant is one device, and raises when it is two."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        _tiny_trainer(tmp_path / "s", 16, ScheduledBroker({0: 1, 8: 2}, 1),
-                      every=8).run(resume=False)
-    _, cfg = _cfgs("qwen3-0.6b")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        TS.make_train_step(cfg, AdamWConfig(), mesh_info=object())
-    topo = build_cluster({"H100": 2}, gpus_per_host=2, hosts_per_rack=1,
-                         racks_per_zone=1)
-    market = Market(topo)
-    root = topo.roots["H100"]
-    market.set_floor(root, 2.0)
-    for _ in range(2):
-        market.place_order("trainA", root, 3.0, limit=3.5)
-    assert len(market.owned_leaves("trainA")) == 2
-    rep = _tiny_trainer(tmp_path / "m1", 4,
-                        MarketBroker(market, "trainA", 1)).run()
-    assert rep.steps_done == 4 and all(np.isfinite(rep.losses))
-    with pytest.raises(NotImplementedError, match="2 devices"):
-        _tiny_trainer(tmp_path / "m2", 4,
-                      MarketBroker(market, "trainA", 2)).run()
 
 
 def test_make_train_state_layout():
