@@ -39,6 +39,16 @@ Phases (one JSON line each):
    clearing kernel must run once per cascade wave of the drive and of
    every alone run; orders, transfers and mean retention are held to
    the committed ``BENCH_fig06.json`` row;
+3a. ``state_checker``: the port's state checker
+   (``market_torch/schema.py``) on the card: ``validate_state`` on
+   phase 3's final 10k engine state (clean; ms, median of 5, host clock
+   ending in its one host read; kernel launches and copies from
+   ``torch.profiler``); ``LAISSEZ_VALIDATE=1`` through the hooked paths
+   (the 256-leaf fleet through ``EpochRunner``, a ``CrashSafeRunner`` run
+   and resume, a facade's 40-event trace and three ``step_arrays``): one
+   validation per publish or step, none raising; then every break case
+   of ``tests/torch_schema_cases.py`` on a card copy of its clean state,
+   each raising its error with the CPU's message;
 3b. ``fig06_scale``: the fcfs / fcfsp / spot fleet baselines
    (``run_fleet_baseline``) at n=10,000 on phase 3's cached denominator,
    then the n=2,048 case (laissez with the analytic denominator and the
@@ -214,6 +224,11 @@ COMMITTED_FAULTS = {
     "storm": {"revoked_by_fault": 224, "epochs": 16}}
 STALE_FAULT_ROWS = {"nofault": {"transfers": 15133, "mean_retention": 0.117},
                     "storm": {"transfers": 15102, "mean_retention": 0.121}}
+# the whole fleet slice at the size of the repository's epoch tests
+SMALL_FLEET = dict(regime="heavy", n_leaves=256, n_training=6,
+                   n_inference=6, n_batch=4, duration_s=900.0, tick_s=60.0,
+                   seed=3, k=8, b_max=128, per_tenant_bids=4,
+                   alone="analytic")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM, float32 outside tensor cores
 BF16_OPS_PER_S = 989e12          # H100 SXM, bf16 tensor cores, dense
@@ -481,10 +496,7 @@ def phase_small_slice(dev):
     from repro_torch.convert import to_numpy
     from repro_torch.sim.simulator import FleetScenarioConfig, \
         run_fleet_scenario
-    cfg = FleetScenarioConfig(
-        regime="heavy", n_leaves=256, n_training=6, n_inference=6,
-        n_batch=4, duration_s=900.0, tick_s=60.0, seed=3, k=8, b_max=128,
-        per_tenant_bids=4, alone="analytic")
+    cfg = FleetScenarioConfig(**SMALL_FLEET)
     gpu = run_fleet_scenario(cfg, device=dev)
     cpu = run_fleet_scenario(cfg, device="cpu")
     eg = to_numpy(gpu.engine_state)
@@ -911,6 +923,201 @@ def phase_main_path(dev):
              f"retention={retention} over {len(res.epoch_s)} epochs; "
              f"committed {COMMITTED_10K}")
     return res, launches
+
+
+# ------------------------------------------------------------ phase 3a
+STATE_CHECK_REPS = 5
+
+
+@contextlib.contextmanager
+def _hook_sites():
+    """Count, while open, the calls of the four sites that publish a
+    state through ``schema.maybe_validate``: ``EpochRunner.drive``,
+    ``CrashSafeRunner._publish``, ``BatchMarket._step`` and
+    ``BatchMarket.step_arrays``."""
+    from repro_torch.market_torch.bridge import BatchMarket
+    from repro_torch.sim.epoch import EpochRunner
+    from repro_torch.sim.recovery import CrashSafeRunner
+    counts = {"drive": 0, "_publish": 0, "_step": 0, "step_arrays": 0}
+    saved = {(cls, name): getattr(cls, name) for cls, name in (
+        (EpochRunner, "drive"), (CrashSafeRunner, "_publish"),
+        (BatchMarket, "_step"), (BatchMarket, "step_arrays"))}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+    try:
+        for (cls, name), fn in saved.items():
+            setattr(cls, name, counted(name, fn))
+        yield counts
+    finally:
+        for (cls, name), fn in saved.items():
+            setattr(cls, name, fn)
+
+
+def _validate_profile(schema, est, eng):
+    """Kernel launches and copies of one ``validate_state``, from
+    ``torch.profiler``: ``memcpy`` counts the device's copy records by
+    direction (``DtoH``: reads to the host)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        schema.validate_state(est, eng)
+    launches, copies = 0, {}
+    for e in prof.key_averages():
+        if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                     "cudaLaunchKernelExC"):
+            launches += e.count
+        if e.key.startswith("Memcpy "):
+            way = e.key.split()[1]
+            copies[way] = copies.get(way, 0) + e.count
+    return launches, copies
+
+
+def _hooked_paths(dev, schema, root):
+    """``LAISSEZ_VALIDATE=1`` through the three hooked paths on the card:
+    the 256-leaf fleet through ``EpochRunner``, a ``CrashSafeRunner`` run
+    and one resume, and a facade's Market-API steps and ``step_arrays``.
+    Returns the site counts and the states the hook validated."""
+    import os
+    import torch
+    from repro_torch.core.market import Market
+    from repro_torch.core.topology import build_cluster
+    from repro_torch.market_torch.bridge import BatchMarket
+    from repro_torch.sim.simulator import FleetScenarioConfig, \
+        run_fleet_scenario
+    from repro_torch.sim.traces import apply_event, market_trace
+    cfg = FleetScenarioConfig(**SMALL_FLEET)
+    before = schema.VALIDATED
+    old = os.environ.get(schema.VALIDATE_ENV)
+    os.environ[schema.VALIDATE_ENV] = "1"
+    try:
+        with _hook_sites() as sites:
+            run_fleet_scenario(cfg, device=dev)
+            runner, _, _, params = _durable_fleet(cfg, dev, root, [],
+                                                  snapshot_every=5)
+            runner.run(params, cfg.duration_s, cfg.tick_s)
+            runner, _, _, params = _durable_fleet(cfg, dev, root, [],
+                                                  snapshot_every=5)
+            runner.resume(params, cfg.duration_s, cfg.tick_s)
+            topo = build_cluster({"H100": 16}, gpus_per_host=4,
+                                 hosts_per_rack=2, racks_per_zone=2)
+            bm = BatchMarket(topo, capacity=1 << 8, n_tenants=8,
+                             device=dev)
+            for e in market_trace(Market(topo), 0, 40):
+                apply_event(bm, e)
+            bids = {"price": torch.tensor([9.0, 8.0], device=dev),
+                    "limit": torch.tensor([12.0, 12.0], device=dev),
+                    "level": torch.tensor([4, 0], dtype=torch.int32,
+                                          device=dev),
+                    "node": torch.tensor([0, 3], dtype=torch.int32,
+                                         device=dev),
+                    "tenant": torch.tensor([1, 2], dtype=torch.int32,
+                                           device=dev)}
+            for i in range(3):
+                bm.step_arrays("H100", bm.now + 60.0 * (i + 1), bids)
+            torch.cuda.synchronize()
+    finally:
+        if old is None:
+            os.environ.pop(schema.VALIDATE_ENV, None)
+        else:
+            os.environ[schema.VALIDATE_ENV] = old
+    return dict(sites), schema.VALIDATED - before
+
+
+def _break_cases(dev, schema):
+    """Every case of ``tests/torch_schema_cases.py`` on a card copy of
+    its clean state: each must raise its error, with the message the
+    same case gives on the CPU."""
+    import torch
+    sys.path.insert(0, str(HERE / "tests"))
+    import torch_schema_cases as C
+    from repro_torch.convert import to_numpy
+    from repro_torch.market_torch.engine import BatchEngine, build_tree
+
+    def engine(d):
+        return BatchEngine(build_tree(64), capacity=256, n_tenants=12, k=4,
+                           device=d)
+    eng, cpu_eng = engine(dev), engine("cpu")
+    clean, cpu_clean = C.clean_state(eng), C.clean_state(cpu_eng)
+    diff = _differing_keys(to_numpy(cpu_clean), to_numpy(clean))
+    if diff:
+        fail(f"the checker's clean state differs on the card: {diff}")
+    schema.validate_state(clean, eng)
+
+    def raised(state, e):
+        try:
+            schema.validate_state(state, e)
+        except (AssertionError, schema.StateInvariantError) as err:
+            return type(err).__name__, str(err)
+        return None, None
+    caught, bad = [], []
+    for case in C.CASES:
+        st = C.broken(clean, eng, case)
+        on_card = all(v.is_cuda for v in st.values()
+                      if isinstance(v, torch.Tensor))
+        kind, msg = raised(st, eng)
+        cpu = raised(C.broken(cpu_clean, cpu_eng, case), cpu_eng)
+        want = ("StateInvariantError" if case.kind == "runtime"
+                else "AssertionError")
+        if kind == want and case.expect in msg and (kind, msg) == cpu \
+                and on_card:
+            caught.append(case.name)
+        else:
+            bad.append({"case": case.name, "raised": kind, "message": msg,
+                        "cpu": cpu[1], "on_card": on_card})
+    return len(C.CASES), caught, bad
+
+
+def phase_state_checker(dev, card, fleet_res):
+    """The port's state checker on the card: ``validate_state`` on the
+    final 10k fleet state of phase 3 (ms, median of
+    ``STATE_CHECK_REPS``, host clock, ending in its one host read), the
+    hooked paths under ``LAISSEZ_VALIDATE=1`` (one validation per
+    publish or step, none raising), and every break case caught."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.market_torch import schema
+    from repro_torch.sim.simulator import FLEET_10K, FleetScenarioConfig, \
+        make_fleet
+    est = fleet_res.engine_state
+    eng = make_fleet(FleetScenarioConfig(**FLEET_10K), dev)[2] \
+        .engines["H100"]
+    schema.validate_state(est, eng)                  # warm-up, and clean
+    ms = []
+    for _ in range(STATE_CHECK_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        schema.validate_state(est, eng)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches, copies = _validate_profile(schema, est, eng)
+    t0 = time.perf_counter()
+    root = OUT / "state_checker_work"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        sites, validated = _hooked_paths(dev, schema, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t1 = time.perf_counter()
+    total, caught, bad = _break_cases(dev, schema)
+    emit({"phase": "state_checker", "card": card,
+          "n_leaves": FLEET_10K["n_leaves"],
+          "capacity": eng.capacity, "n_tenants": eng.n_tenants,
+          "predicates": len(schema._runtime_checks(eng, est)),
+          "validate_ms_10k": float(np.median(ms)), "validate_ms_all": ms,
+          "kernel_launches": launches, "memcpy": copies,
+          "hook_sites": sites, "hook_validations": validated,
+          "hooked_paths_s": t1 - t0, "break_cases": total,
+          "caught": len(caught), "not_caught": bad,
+          "break_cases_s": time.perf_counter() - t1})
+    if validated != sum(sites.values()) or not all(sites.values()):
+        fail(f"LAISSEZ_VALIDATE=1 validated {validated} states at sites "
+             f"{sites}: one per publish or step expected")
+    if bad or len(caught) != total:
+        fail(f"the state checker missed break cases on the card: {bad}")
 
 
 def degradation_reduction(base_ret: float, lc_ret: float) -> float:
@@ -2526,6 +2733,7 @@ def main() -> None:
         timed(f"reduced_{arch}", phase_reduced_prefill_decode, dev, arch)
     fleet_res, fleet_launches = timed("main_path", phase_main_path, dev)
     kernels = [_market_clear_entry(fleet_res, fleet_launches)]
+    timed("state_checker", phase_state_checker, dev, card, fleet_res)
     timed("fig06_scale", phase_fig06_scale, dev, fleet_res)
     storm = timed("faults", phase_faults, dev)
     timed("recovery", phase_recovery, dev, *storm)

@@ -1,7 +1,6 @@
-"""Topology forest, copied from ``repro.core.topology`` and trimmed to what
-the fleet and event-market paths use: each tree root is a resource type;
-zones, racks and hosts refine it; leaves are resource instances (paper
-§4.3)."""
+"""Topology forest, copied from ``repro.core.topology``: each tree root is
+a resource type; zones, racks and hosts refine it; leaves are resource
+instances (paper §4.3)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -71,8 +70,25 @@ class Topology:
         """self, parent, ..., root."""
         return self._ancestors[nid]
 
+    def covers(self, scope: int, leaf: int) -> bool:
+        return scope in self._ancestors[leaf]
+
     def node(self, nid: int) -> Node:
         return self.nodes[nid]
+
+    def n_leaves(self) -> int:
+        return sum(1 for n in self.nodes if n.is_leaf)
+
+    def common_scope(self, a: int, b: int) -> int:
+        """Lowest common ancestor of two nodes in the same tree."""
+        pa = set(self._ancestors[a])
+        for nid in self._ancestors[b]:
+            if nid in pa:
+                return nid
+        raise ValueError("nodes are in different trees")
+
+    def depth(self) -> int:
+        return max((len(p) for p in self._ancestors.values()), default=0)
 
 
 def build_cluster(type_counts: Dict[str, int], *, gpus_per_host: int = 8,

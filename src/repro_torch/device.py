@@ -66,6 +66,14 @@ def arange32(n: int, device: Optional[torch.device]) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=device)
 
 
+def take(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather with the reference's index semantics: negative indices
+    wrap once, then indices clamp into range."""
+    n = arr.shape[0]
+    idx = idx.long()
+    return arr[torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)]
+
+
 def scatter_drop(base: torch.Tensor, idx: torch.Tensor,
                  src) -> torch.Tensor:
     """``base.at[idx].set(src, mode="drop")`` out of place: indices

@@ -78,6 +78,15 @@ def sort_book(gseg: torch.Tensor, prices: torch.Tensor,
     return i32(perm), gseg[perm]
 
 
+def sorted_segment_aggregates(order, sorted_gseg, seg_start, prices,
+                              tenants, seqs, n_seg: int, k: int):
+    """Level-major wrapper over ``_prefix_aggregates``: returns ``(pk,
+    tk, sk, qk, p2, s2, q2)`` with ``(k, n_seg)`` ranked lists."""
+    pk, tk, sk, qk, p2, _, s2, q2 = _prefix_aggregates(
+        order, sorted_gseg, seg_start, prices, tenants, seqs, n_seg, k)
+    return pk.T, tk.T, sk.T, qk.T, p2, s2, q2
+
+
 def _prefix_aggregates(order, sorted_gseg, seg_start, prices, tenants,
                        seqs, n_seg: int, k: int):
     """Ranked per-segment aggregates as contiguous-prefix gathers — the
@@ -264,3 +273,34 @@ def clear_sorted_from_aggs(aggs, level_floor, level_off: Sequence[int],
     truncated = i32(full & (P[:, k - 1] >= floor - EPSF))
     evict = i32((owner >= 0) & (rate > limit + EPSF))
     return rate, best_level, cand_slots, truncated, evict
+
+
+def segment_aggregates(prices, seg, tenants, n_seg: int, k: int = 1,
+                       seqs=None):
+    """One-shot ranked aggregates for a single flat segmentation: sorts
+    the table (``sort_book``) and prefix-gathers, for callers without a
+    maintained view.  prices: (nb,) f32 (NEG for inactive); seg: (nb,)
+    int32 segment ids; tenants: (nb,) int32 (-1 inactive); seqs: (nb,)
+    int32 arrival stamps (default: slot order).  Returns ``(pk, tk, sk,
+    qk, p2, s2, q2)`` as ``sorted_segment_aggregates``."""
+    slot = arange32(prices.shape[0], prices.device)
+    if seqs is None:
+        seqs = slot
+    live = (prices > NEG / 2) & (tenants >= 0)
+    gseg = torch.where(live, seg.clamp(0, n_seg - 1), n_seg)
+    order, sorted_gseg = sort_book(gseg, torch.where(live, prices, NEG),
+                                   seqs)
+    seg_start = torch.searchsorted(
+        sorted_gseg, arange32(n_seg + 1, prices.device), side="left",
+        out_int32=True)
+    return sorted_segment_aggregates(order, sorted_gseg, seg_start,
+                                     prices, tenants, seqs, n_seg, k)
+
+
+def segment_top2(prices, seg, owners, n_seg: int):
+    """``(top1, top1_owner, top2)`` per segment, where top2 is the best
+    bid from a tenant OTHER than top1's (the owner-exclusion
+    runner-up)."""
+    pk, tk, _, _, p2, _, _ = segment_aggregates(prices, seg, owners,
+                                                n_seg, k=1)
+    return pk[0], tk[0], p2

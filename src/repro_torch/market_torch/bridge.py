@@ -36,6 +36,7 @@ from repro_torch.core.market import OPERATOR, TICK, VisibilityError, \
     VolatilityControls
 from repro_torch.core.topology import Topology
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.market_torch import schema
 from repro_torch.market_torch.engine import NEG, BatchEngine, TreeSpec
 
 # the engine-state keys the host copy holds (besides floors, t, head)
@@ -209,6 +210,7 @@ class BatchMarket:
         st, transfers, _ = eng.step(self.states[rtype], self.now,
                                     new_bids, floors, relinquish)
         self.states[rtype] = st
+        schema.maybe_validate(st, eng, where=f"{rtype} state")
         _, (old, rev) = self._pull(rtype, transfers)
         self._fire(rtype, old, rev, explicit)
 
@@ -296,6 +298,7 @@ class BatchMarket:
                                     None, relinquish, limits)
         self.states[rtype] = st
         self._np[rtype] = None
+        schema.maybe_validate(st, eng, where=f"{rtype} state")
         if bids is not None:
             self.stats["orders"] += int((bids["tenant"] >= 0).sum())
         if self.on_transfer:

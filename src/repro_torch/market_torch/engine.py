@@ -33,7 +33,7 @@ import torch
 from repro_torch.core.market import VolatilityControls
 from repro_torch.device import (DeviceLike, arange32, f32_order_key, fma,
                                 i32, recip32, resolve_device, scatter_add_drop,
-                                scatter_drop, seq_scatter_add)
+                                scatter_drop, seq_scatter_add, take)
 from repro_torch.kernels.market_clear import ops as clear_ops
 from repro_torch.kernels.market_clear import ref as R
 
@@ -61,14 +61,6 @@ class TreeSpec:
 
     def nodes_at(self, d: int) -> int:
         return -(-self.n_leaves // self.strides[d])
-
-
-def _take(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Gather with the reference's index semantics: negative indices
-    wrap once, then indices clamp into range."""
-    n = arr.shape[0]
-    idx = idx.long()
-    return arr[torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)]
 
 
 class BatchEngine:
@@ -386,7 +378,7 @@ class BatchEngine:
         if mult <= 0:
             return prices
         tree, dev = self.tree, self.device
-        first_leaf = nodes * _take(self._strides, levels)
+        first_leaf = nodes * take(self._strides, levels)
         leaf_ids = torch.arange(tree.n_leaves, device=dev)
         live = (state["price"] > NEG / 2) & (state["tenant"] >= 0)
         ref = torch.zeros(prices.shape, dtype=F32, device=dev)

@@ -17,8 +17,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
-STAT_KEYS = ("orders", "transfers", "explicit_relinquish",
-             "implicit_relinquish", "bids_clipped", "revoked_by_fault")
+from repro_torch.market_torch import schema
+from repro_torch.market_torch.schema import STAT_KEYS
 
 
 def _isum(x: torch.Tensor) -> torch.Tensor:
@@ -105,6 +105,7 @@ class EpochRunner:
         market.states[rtype] = est
         market._np[rtype] = None
         market.now = max(market.now, t - tick_s)
+        schema.maybe_validate(est, self.eng, where=f"{rtype} state")
         host_stats = {k: int(stats[k]) for k in STAT_KEYS}
         for k in ("orders", "transfers", "explicit_relinquish",
                   "implicit_relinquish", "revoked_by_fault"):

@@ -52,7 +52,9 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.checkpoint import CheckpointManager
-from repro_torch.sim.epoch import STAT_KEYS, accum_stats
+from repro_torch.market_torch import schema
+from repro_torch.market_torch.schema import STAT_KEYS
+from repro_torch.sim.epoch import accum_stats
 
 MAGIC = b"LCW1"
 _HEADER = struct.Struct("<4sII")      # magic, payload_len, crc32
@@ -199,6 +201,7 @@ class CrashSafeRunner:
         market.states[rtype] = est
         market._np[rtype] = None
         market.now = max(market.now, t_last)
+        schema.maybe_validate(est, self.eng, where=f"{rtype} state")
         host = {k: int(stats[k]) for k in STAT_KEYS}
         for k in ("orders", "transfers", "explicit_relinquish",
                   "implicit_relinquish", "revoked_by_fault"):

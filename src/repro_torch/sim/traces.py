@@ -1,12 +1,13 @@
-"""Synthetic traces: inference load, copied from ``repro.sim.traces``
-(diurnal sinusoid plus log-normal bursts and occasional spikes on a 10 s
-tick, docs/DESIGN.md §7) with the dense rate grid the fleet reads, and
-random Market-API event traces for replaying one workload on several
+"""Synthetic traces, copied from ``repro.sim.traces`` (docs/DESIGN.md
+§7): inference load (diurnal sinusoid plus log-normal bursts and
+occasional spikes on a 10 s tick) with the dense rate grid the fleet
+reads, the two power rows of Fig 11, Poisson arrivals, and random
+Market-API event traces for replaying one workload on several
 markets."""
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -33,6 +34,30 @@ def llm_request_rate(seed: int, duration_s: float, base_rps: float = 20.0,
     return f
 
 
+def power_rows(seed: int, duration_s: float, cap_kw: float = 100.0,
+               tick_s: float = 10.0) -> Dict[str, Callable[[float], float]]:
+    """Two cluster rows as separate power domains (Fig 11): row A ramps to
+    a constrained level at t = 5 min; row B stays comfortable."""
+    rng = np.random.default_rng(seed)
+    n = int(duration_s / tick_s) + 2
+
+    def row(base_frac: float, jump_at: float, jump_to: float):
+        arr = np.full(n, base_frac * cap_kw)
+        arr += rng.normal(0, 0.02 * cap_kw, size=n)
+        j = n if not math.isfinite(jump_at) else int(jump_at / tick_s)
+        if j < n:
+            arr[j:] = jump_to * cap_kw + rng.normal(0, 0.02 * cap_kw,
+                                                    size=n - j)
+
+        def f(now: float) -> float:
+            i = min(int(now / tick_s), n - 1)
+            return float(max(arr[i], 0.0))
+        return f
+
+    return {"rowA": row(0.55, 300.0, 0.97),
+            "rowB": row(0.50, math.inf, 0.50)}
+
+
 def sample_rate_grid(rate_fns: List[Optional[Callable[[float], float]]],
                      duration_s: float, tick_s: float = 10.0) -> np.ndarray:
     """Per-tenant rate callables sampled onto one dense piecewise-constant
@@ -46,6 +71,19 @@ def sample_rate_grid(rate_fns: List[Optional[Callable[[float], float]]],
             continue
         out[i] = [f(k * tick_s) for k in range(n_ticks)]
     return out
+
+
+def poisson_arrivals(seed: int, duration_s: float, mean_interarrival_s: float
+                     ) -> List[float]:
+    """Arrival times of a Poisson process with the given mean gap, up to
+    (not including) ``duration_s``."""
+    rng = np.random.default_rng(seed)
+    out, t = [], 0.0
+    while True:
+        t += rng.exponential(mean_interarrival_s)
+        if t >= duration_s:
+            return out
+        out.append(t)
 
 
 def market_trace(market, seed: int, n_events: int,

@@ -8,7 +8,7 @@ volatility control on.  After every op the whole state must be equal,
 key for key (bills included: the port adds each tenant's accruals in
 leaf order, as the reference's CPU scatter does), and after every step
 the port's state, converted to numpy, must pass the reference's
-``schema.validate_state``.
+``schema.validate_state``, and the port's state the port's own.
 Each step passes all four optional inputs (padding where unused), so
 the reference compiles one step per engine.
 """
@@ -26,6 +26,7 @@ from repro.market_jax.engine import build_tree as jbuild_tree
 from repro_torch.convert import to_numpy
 from repro_torch.core.market import VolatilityControls
 from repro_torch.device import seq_scatter_add
+from repro_torch.market_torch import schema as T_schema
 from repro_torch.market_torch.engine import BatchEngine, build_tree
 
 N_LEAVES, CAP, N_TEN = 64, 256, 12
@@ -153,6 +154,7 @@ def test_engine_trace_matches_reference(k, seed):
             # set_health leaves a down leaf's owner for the next step to
             # evict, so the full invariant set holds at step boundaries
             schema.validate_state(host, jeng, where=f"port op {i}")
+            T_schema.validate_state(tst, teng, where=f"port op {i}")
             stepped += 1
     assert stepped > 0 and int(tst["waves"]) > 0
 
