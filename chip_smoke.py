@@ -148,6 +148,21 @@ Phases (one JSON line each):
    the same checkpoint: losses within 1e-5, a restore per run, the router's
    launches exact (one card holds one NCCL rank: the resizes run on
    CPU gloo ranks in ``tests/test_torch_launch.py``);
+4d. the sharded step and the dry run: ``sharded_train``: olmoe-1b-7b's
+   ``TRAIN_FULL`` through ``make_train_step`` on plain tensors, then with
+   the state as DTensors placed by ``train_state_specs`` on the same
+   one-rank (1, 1) mesh from the same seeded parameters and batches:
+   each step's loss and grad norm within 1e-6 relative, moe_route's
+   launches in the DTensor run exact, its peak under 72 GB, step ms
+   p50 / p95 of both beside ``train_olmoe``'s, and the dry run's
+   tensor-core floor of the step (rank 0's matrix FLOPs from a trace in
+   a fake-group subprocess, over 989 TFLOP/s); ``dryrun``: four
+   full-width cells (``DRYRUN_CELLS``) through ``python -m
+   repro_torch.launch.dryrun``, each in its own host process with no
+   card visible, all at once: every cell ``ok``, its per-device FLOPs
+   and bytes, wire bytes by collective, analytic memory and
+   ``fits_h100``, uneven leaves and the host's trace seconds; the card's
+   ``total_memory`` equal to ``analytic.HBM_BYTES``;
 5. a ``kernels`` line: per kernel, its launches on its main path, its
    time per call, the plain version's time and one PyTorch library
    call's time on the same inputs (none computes the SSD scan), and the
@@ -2017,6 +2032,9 @@ def _drop_share(records):
     return sum(int(d) for d, _ in counts) / sum(int(n) for _, n in counts)
 
 
+TRAIN_SUMMARY = {}               # phase_train's readings by arch
+
+
 def phase_train(dev, arch, card):
     """A full-width train run through ``launch.train.train`` and
     ``Trainer.run`` on a one-rank NCCL group (the trainer's (1, 1) mesh,
@@ -2112,6 +2130,9 @@ def phase_train(dev, arch, card):
              f"{want}")
     if bad:
         fail(f"{cfg.name}: gradients non-finite or zero in {bad}")
+    TRAIN_SUMMARY[arch] = {"losses": list(rep.losses),
+                           "step_ms_p50": p50 * 1e3,
+                           "step_ms_p95": _pct(later, 0.95) * 1e3}
     del tr, rep
     _release()
     return launches
@@ -2300,6 +2321,210 @@ def phase_launch_train_market(dev, card):
         fail(f"the market-driven run on the card: steps {steps}, restores "
              f"{restores}, loss err {err}, bill {bill}, launches "
              f"{launches} (expected {want})")
+
+
+# the dry run's cells traced on the host (this slice's second path)
+DRYRUN_CELLS = (("llama3-405b", "train_4k", "single"),
+                ("olmoe-1b-7b", "train_4k", "single"),
+                ("gemma3-27b", "decode_32k", "single"),
+                ("mamba2-780m", "prefill_32k", "multi"))
+PEAK_BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
+SHARDED_PEAK_LIMIT_GB = 72.0
+
+_FLOOR = """
+import json
+from repro_torch.launch import dryrun
+dryrun.start_fake_group(1)
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import cells
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.optim import AdamWConfig
+cfg = get_config({arch!r})
+tr = cells.trace_cell(cells.build_cell(
+    cfg, ShapeConfig("train_full", {S}, {B}, "train"),
+    make_mesh((1, 1), ("data", "model"), "meta"),
+    AdamWConfig(state_dtype={dtype!r})))
+print("FLOOR " + json.dumps({{"flops": tr["flops"],
+                              "bytes": tr["bytes accessed"]}}))
+"""
+
+
+def _host_env():
+    """A subprocess environment for host-only work: the package on the
+    path and no card visible."""
+    import os
+    return {**os.environ, "PYTHONPATH": str(HERE / "src"),
+            "CUDA_VISIBLE_DEVICES": ""}
+
+
+def _train_floor(arch, spec):
+    """Rank 0's matrix FLOPs of one step of ``arch`` at ``spec``'s shape
+    on a (1, 1) mesh, from the dry run's trace (a subprocess with its own
+    fake group), and that over the bf16 tensor-core peak."""
+    r = subprocess.run(
+        [sys.executable, "-c", _FLOOR.format(
+            arch=arch, S=spec["seq_len"], B=spec["batch"],
+            dtype=spec["state_dtype"])],
+        env=_host_env(), capture_output=True, text=True, timeout=300)
+    line = [x for x in r.stdout.splitlines() if x.startswith("FLOOR ")]
+    if r.returncode or not line:
+        fail(f"the dry run's trace of the {arch} step failed: "
+             f"{r.stderr[-2000:]}")
+    got = json.loads(line[0][6:])
+    return got["flops"], got["flops"] / PEAK_BF16_FLOPS * 1e3
+
+
+def phase_sharded_train(dev, card):
+    """The sharded step (``make_train_step`` with the state as DTensors
+    placed by ``train_state_specs``, the batch by ``batch_specs``) on
+    the trainer's one-rank (1, 1) NCCL mesh at olmoe-1b-7b's
+    ``TRAIN_FULL`` (1 x 4,096 tokens, bfloat16 m and v, 6 steps) against
+    the same step on plain tensors from the same seeded parameters and
+    batches, run first: one rank runs the same local operations, so
+    each step's loss and grad norm agree within 1e-6 relative.  Launch
+    counts set to 0 just before the DTensor run and read just after
+    (moe_route inside ``moe_ep``'s ``local_map``); step ms p50 / p95 of
+    both runs beside ``train_olmoe``'s (the Trainer, also on DTensors);
+    peak memory under 72 GB; and the dry run's tensor-core floor for
+    the step: rank 0's matrix FLOPs over 989e12.  On the (1, 1) mesh
+    ``layers.data_parallel`` holds, so every layer takes
+    ``model._run_stack``'s ``dp_blocks`` branch on local tensors: the
+    card runs the placement, the embedding, logits, loss and AdamW on
+    DTensors and that branch, not the branch of a mesh with a "model"
+    cut (``pin_batch``, ``_attend_blocks``, the vocab-cut embedding,
+    ``split_heads``' gather), which the CPU gloo tests alone hold."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shardings as SH
+    from repro_torch.models import steps as TS
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import AdamWConfig, make_train_state
+    from repro_torch.tree import tree_leaves
+    arch = SERVE_ARCH
+    spec = TRAIN_FULL[arch]
+    B, S, steps = spec["batch"], spec["seq_len"], spec["steps"]
+    opt = AdamWConfig(lr=spec["lr"], warmup_steps=spec["warmup_steps"],
+                      state_dtype=spec["state_dtype"])
+    cfg = get_config(arch)
+    mi = _mesh_info(dev)
+    mesh = mi.mesh
+    batches = _train_batches(cfg, B, S, steps)
+    step = TS.make_train_step(cfg, opt, mi)
+    runs = {}
+    for placed in (False, True):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        state = make_train_state(init_params(cfg, gen, dev), opt)
+        if placed:
+            state = SH.distribute(state, SH.train_state_specs(cfg, mesh),
+                                  mesh)
+            torch.cuda.reset_peak_memory_stats(dev)
+            _reset_launches()
+        losses, norms, ms = [], [], []
+        for b in batches:
+            b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            if placed:
+                b = SH.distribute(b, SH.batch_specs(cfg, mesh, B), mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            norms.append(float(m["grad_norm"]))
+        if placed:
+            launches = _read_launches()
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            placements = sorted({str(t.placements) for t in
+                                 tree_leaves(state["params"])})
+        runs[placed] = (losses, norms, ms)
+        del state
+        _release()
+    (pl, pn, pms), (dl, dn, dms) = runs[False], runs[True]
+    rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in
+              zip(dl + dn, pl + pn))
+    want = _train_launches(cfg, steps)
+    flops, floor_ms = _train_floor(arch, spec)
+    trainer = TRAIN_SUMMARY.get(arch, {})
+    emit({"phase": "sharded_train", "card": card, "arch": cfg.name,
+          "full": True, "mesh": list(mesh.shape), "group": _group_backend(),
+          "entry": "repro_torch.models.steps.make_train_step on DTensors "
+                   "(launch.shardings.distribute of train_state_specs)",
+          "param_placements": placements, "batch": B, "seq_len": S,
+          "steps": steps, "state_dtype": opt.state_dtype,
+          "losses_dtensor": dl, "losses_plain": pl,
+          "grad_norms_dtensor": dn, "grad_norms_plain": pn,
+          "max_rel_diff": rel, "rel_tolerance": 1e-6,
+          "step_ms_dtensor": dms, "step_ms_plain": pms,
+          "step_ms_p50_dtensor": _pct(dms[1:], 0.5),
+          "step_ms_p95_dtensor": _pct(dms[1:], 0.95),
+          "step_ms_p50_plain": _pct(pms[1:], 0.5),
+          "step_ms_p95_plain": _pct(pms[1:], 0.95),
+          "step_ms_p50_trainer": trainer.get("step_ms_p50"),
+          "step_ms_p95_trainer": trainer.get("step_ms_p95"),
+          "trainer_losses_equal": trainer.get("losses") == dl,
+          "peak_mem_gb": peak, "peak_limit_gb": SHARDED_PEAK_LIMIT_GB,
+          "launches": launches, "expected_launches": want,
+          "dryrun_matrix_flops": flops,
+          "tensor_core_floor_ms": floor_ms,
+          "floor_rate_flops_per_s": PEAK_BF16_FLOPS})
+    if rel > 1e-6:
+        fail(f"the DTensor step differs from the plain step by {rel} "
+             f"(relative; losses {dl} vs {pl}, norms {dn} vs {pn})")
+    if launches != want:
+        fail(f"the sharded step launched {launches}; expected {want}")
+    if peak >= SHARDED_PEAK_LIMIT_GB:
+        fail(f"the sharded step peaked at {peak} GB")
+
+
+def phase_dryrun():
+    """The dry run (``python -m repro_torch.launch.dryrun``) of
+    ``DRYRUN_CELLS`` at full width on the production meshes, each cell
+    in its own process on the host (a fake group of 512 ranks, ``meta``
+    tensors, no card), four at once: status, per-device FLOPs and bytes,
+    wire bytes by collective, the analytic memory and whether it fits
+    the card, the uneven leaves, and the host's trace seconds.  A cell
+    that is not ``ok`` fails the run.  The card's memory size is held to
+    ``analytic.HBM_BYTES``."""
+    import torch
+    from repro_torch.launch import analytic
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = OUT / "dryrun_torch"
+    procs = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out", str(out),
+             "--force"], env=_host_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    cells = []
+    for (arch, shape, mesh), proc in zip(DRYRUN_CELLS, procs):
+        _, err = proc.communicate(timeout=600)
+        path = out / f"{arch}__{shape}__{mesh}.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        if proc.returncode or rec.get("status") != "ok":
+            fail(f"dry run {arch} {shape} {mesh}: {rec.get('status')} "
+                 f"{rec.get('error')} {err[-2000:]}")
+        mem = rec["analytic_memory_per_dev"]
+        cells.append({
+            "arch": arch, "shape": shape, "mesh": mesh,
+            "status": rec["status"], "n_devices": rec["n_devices"],
+            "flops_per_dev": rec["flops_per_dev"],
+            "bytes_per_dev": rec["bytes_per_dev"],
+            "model_flops": rec["model_flops"]["model_flops"],
+            "wire_bytes_by_op": {k: v["wire_bytes"] for k, v in
+                                 rec["collectives"]["per_op"].items()},
+            "wire_bytes": rec["collectives"]["wire_bytes"],
+            "memory_analysis": rec["memory_analysis"],
+            "analytic_memory_total": mem["total"],
+            "fits_h100": mem["fits_h100"],
+            "uneven_leaves": rec["uneven_leaves"],
+            "trace_s_host": rec["trace_s"]})
+    emit({"phase": "dryrun", "cells": cells,
+          "card_total_memory": total, "analytic_hbm_bytes":
+          analytic.HBM_BYTES})
+    if total != analytic.HBM_BYTES:
+        fail(f"the card holds {total} bytes; analytic.HBM_BYTES says "
+             f"{analytic.HBM_BYTES}")
 
 
 def _release() -> None:
@@ -2803,6 +3028,9 @@ def main() -> None:
         entry["launches_by_path"][f"{arch} train"] = launches[name]
         entry["backward"] = backward[name]
     timed("launch_train_market", phase_launch_train_market, dev, card)
+    # this slice's main paths: the sharded step and the dry run
+    timed("sharded_train", phase_sharded_train, dev, card)
+    timed("dryrun", phase_dryrun)
     emit({"kernels": kernels})
     emit({"phase": "done", "card": card, "phase_s": phase_s,
           "total_s": round(time.perf_counter() - t0, 3)})

@@ -1,6 +1,8 @@
 """The router as the model calls it (``models.layers.moe_dense``): the
-CUDA kernel on a CUDA tensor, the plain version on a CPU tensor, an
-error on any other device; with a gradient on either.
+CUDA kernel on a CUDA tensor, the plain version on a CPU tensor (and on
+a ``meta`` one, where it gives the shapes and dtypes: the dry run
+traces there), an error on any other device; with a gradient on
+either.
 
 The kernel's outputs carry no ``grad_fn``, so ``route_dense`` is an
 ``autograd.Function``.  Its backward is the closed form of the
@@ -22,7 +24,7 @@ def _route(logits, k: int, renormalize: bool, dtype):
     dev = logits.device
     if dev.type == "cuda":
         return K.route_cuda(logits.contiguous(), k, renormalize, dtype)
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return R.route_dense_ref(logits, k, renormalize, dtype)
     raise ValueError(f"no router for device {dev}")
 

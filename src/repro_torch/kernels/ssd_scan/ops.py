@@ -1,6 +1,7 @@
 """The SSD scan as the model calls it: the CUDA kernel on CUDA tensors,
-the plain version on CPU tensors, an error on any other device; with a
-gradient on either.
+the plain version on CPU tensors (and on ``meta`` ones, where it gives
+the shapes and dtypes: the dry run traces there), an error on any other
+device; with a gradient on either.
 
 The kernel reads x, Bm and Cm through their batch and token strides, so
 the slices of ``ssd_block``'s conv output go in without a copy; a layout
@@ -28,7 +29,7 @@ def _scan(x, dt, A, Bm, Cm, chunk: int):
     dev = x.device
     if dev.type == "cuda":
         return K.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk)
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return R.ssd_scan_ref(x, dt, A, Bm, Cm, chunk)
     raise ValueError(f"no SSD scan for device {dev}")
 

@@ -21,6 +21,12 @@ asked, over a ``FileStore`` in a temporary directory: no TCP port to
 collide on), the counterpart of the reference's
 ``xla_force_host_platform_device_count``.
 
+``make_production_mesh`` is the reference's 256- or 512-device mesh as
+a ``DeviceMesh`` over the default group, which must have that many
+ranks: the dry run (``launch/dryrun.py``) gives it a fake one, in which
+this process is rank 0 and every collective returns at once.  Nothing
+else starts a fake group.
+
 ``MeshShape`` is a mesh's axis names and sizes without ranks, for the
 placement maps of meshes larger than the host (``launch/shardings.py``
 reads a ``DeviceMesh`` and a ``MeshShape`` alike).
@@ -109,6 +115,22 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
                          f"group has {world}")
     return DeviceMesh(dev.type, torch.arange(n).reshape(shape),
                       mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """Single pod: (data=16, model=16) = 256 ranks.  Multi-pod: (pod=2,
+    data=16, model=16) = 512 ranks.  Over ranks 0 .. 255 or 511 of the
+    default group; raises without a group of that many.  For ``meta``
+    tensors, which the dry run traces on."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = math.prod(shape)
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if world < n:
+        raise ValueError(f"the production mesh {shape} needs {n} ranks; "
+                         f"the default group has {world}")
+    return DeviceMesh("meta", torch.arange(n).reshape(shape),
+                      mesh_dim_names=axes)
 
 
 def dp_axes(mesh) -> Tuple[str, ...]:

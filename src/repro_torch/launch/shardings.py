@@ -17,18 +17,23 @@ entries:
 Shapes whose global batch cannot shard over the dp axes shard the KV
 cache's sequence dim over every mesh axis instead.
 
+``to_placements`` turns a ``P`` into a DTensor placement per mesh
+dimension (the counterpart of ``to_named``), and ``distribute`` places a
+tree of full tensors, or of ``meta`` templates, as DTensors: the
+counterpart of ``jax.jit``'s ``in_shardings``.  The trainer and the dry
+run place their state so, FSDP over "data" with TP and EP over "model".
 ``local_shard`` / ``local_shards`` give this rank's block of a tensor or
 a tree under a placement, contiguous blocks as ``NamedSharding`` lays
-them out.  The port trains data-parallel with the parameters and the
-AdamW state replicated over the dp axes (DDP), not FSDP-sharded: the
-trainer places its state by ``replicated_over(train_state_specs(...),
-dp_axes(mesh))``, which keeps only the "model" cuts.
+them out (a DTensor's local block under ``to_placements`` is the same
+block wherever the mesh divides the dimension).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Iterable
 
 import torch
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch import mesh as mesh_lib
@@ -208,6 +213,60 @@ def _axes(entry) -> tuple:
     if entry is None:
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def to_placements(spec: P, mesh) -> tuple:
+    """The DTensor placements of ``spec`` on ``mesh``, one per mesh
+    dimension: ``Shard(d)`` where dimension ``d``'s entry names that mesh
+    axis, ``Replicate()`` elsewhere.  An entry of several axes shards
+    one dimension over each of them, the first one major, as
+    ``NamedSharding`` lays it out; DTensor splits in mesh-dimension
+    order, so the entry's axes must come in the mesh's order.  An axis
+    of size 1 cuts nothing and is ``Replicate()`` (DTensor refuses some
+    views of a dim "cut" into one block)."""
+    sizes = mesh_lib.axis_sizes(mesh)
+    names = tuple(sizes)
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        axes = _axes(entry)
+        at = [names.index(a) for a in axes]
+        if at != sorted(at):
+            raise ValueError(f"{spec}: axes {axes} not in the mesh's order "
+                             f"{names}")
+        for i in at:
+            if isinstance(out[i], Shard):
+                raise ValueError(f"{spec}: axis {names[i]!r} cuts two dims")
+            if sizes[names[i]] > 1:
+                out[i] = Shard(dim)
+    return tuple(out)
+
+
+def distribute(tree: Any, specs: Any, mesh) -> Any:
+    """Every leaf of ``tree`` as a DTensor on ``mesh`` under the
+    placement at the same place in ``specs`` (dicts and lists walked
+    together).  Each rank cuts its own block out of the full tensor it
+    holds, with no communication; a ``meta`` leaf gives a ``meta``
+    DTensor whose local block has the rank's shape and no storage.  A
+    leaf that is a DTensor already is redistributed."""
+    if isinstance(specs, P):
+        place = to_placements(specs, mesh)
+        if isinstance(tree, DTensor):
+            return tree.redistribute(mesh, place)
+        return distribute_tensor(tree.detach(), mesh, place,
+                                 src_data_rank=None)
+    if isinstance(specs, dict):
+        return {k: distribute(tree[k], specs[k], mesh) for k in tree}
+    return type(tree)(distribute(t, s, mesh) for t, s in zip(tree, specs))
+
+
+def full(tree: Any) -> Any:
+    """Every DTensor leaf of ``tree`` gathered whole (``full_tensor``, a
+    collective over its mesh); other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: full(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(full(v) for v in tree)
+    return tree.full_tensor() if isinstance(tree, DTensor) else tree
 
 
 def replicated_over(specs: Any, axes: Iterable[str]) -> Any:

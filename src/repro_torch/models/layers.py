@@ -19,6 +19,16 @@ Prefill attention, the projections, the MLPs, the causal conv and the
 one-token SSM recurrence (``ssd_decode``, pure jnp in the reference)
 stay plain PyTorch, as the reference left them to XLA.
 
+On DTensors (a step over a mesh) the projections and norms run under
+DTensor's sharding propagation, and the rest on each rank's blocks
+(``local_map`` or ``dp_blocks``): ``moe_ep`` with the reference's
+``shard_map`` specs, ``ssd_block`` / ``ssd_decode`` data-parallel only
+(as the placement map keeps the SSM; the scan kernel sees this rank's
+block), the attention core (``_attend_blocks``) and the vocab-cut
+embedding (``embed_blocks``); ``pin_batch`` places the residual stream
+as the reference's sharding constraint does.  A decode step writes its
+new K/V into the block of the rank that holds ``pos`` (``_put``).
+
 JAX promotes mixed float types at a product (``bf16 @ f32`` is an f32
 product); PyTorch raises instead, so the casts JAX applies silently are
 written out here (the router's logits, ``moe_dense``'s combine weights,
@@ -29,19 +39,160 @@ tanh form.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+import torch.utils._pytree as pytree
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import scatter_drop
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.moe_route import ops as route_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.tree import tree_map
 
 NEG_INF = -2.0 ** 30  # large-negative for masking (safe in bf16)
+
+
+# --------------------------------------------------------------------------
+# Running on each rank's blocks (DTensor inputs)
+# --------------------------------------------------------------------------
+def _batch_placements(mesh, batch: int):
+    """(batch, replicated-parameter gradient) placements per mesh dim:
+    the batch cut over the dp axes (every axis but "model") where they
+    divide it, else replicated (the reference's ``batch_sharded``; an
+    axis of one rank replicates, as ``to_placements`` has it); a
+    replicated parameter's gradient is then a partial sum over those
+    axes."""
+    names = mesh.mesh_dim_names
+    dp = [i for i, a in enumerate(names) if a != "model"]
+    cut = batch % math.prod(mesh.size(i) for i in dp) == 0
+    bpl = tuple(Shard(0) if cut and i in dp and mesh.size(i) > 1
+                else Replicate() for i in range(len(names)))
+    gpl = tuple(Partial() if p == Shard(0) else p for p in bpl)
+    return bpl, gpl
+
+
+def pin_batch(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream (B, S, D) placed as the batch cut over the dp
+    axes where they divide it and every other dim whole: the reference's
+    ``make_shard_act`` sharding constraint, which the port also puts on
+    each sublayer's output before the residual add.  Without them
+    DTensor's propagation may carry the stream cut over "model" too (and
+    every attention then starts with an all-to-all), or carry a
+    row-parallel product's pending sum over "model" into the stream and
+    the next norm, and then compute the next products whole on every
+    "model" rank: its cost model weighs communication only.  The
+    gradient is placed so too (the backward's pending sums are taken
+    there).  Plain tensors as they are."""
+    if not isinstance(x, DTensor):
+        return x
+    return _Place.apply(x, _batch_placements(x.device_mesh, x.shape[0])[0])
+
+
+class _Place(torch.autograd.Function):
+    """Identity on values; the value and its gradient redistributed to
+    ``placements``."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements), None
+
+
+def data_parallel(x) -> bool:
+    """``x`` is a DTensor on a mesh with no "model" cut (data-parallel
+    only: each layer can run whole on each rank's batch block)."""
+    if not isinstance(x, DTensor):
+        return False
+    names = x.device_mesh.mesh_dim_names
+    return "model" not in names or \
+        x.device_mesh.size(names.index("model")) == 1
+
+
+def dp_blocks(fn, params, *xs):
+    """``fn(params, *xs)`` on each rank's batch block with every parameter
+    whole: data-parallel only.  ``params`` is a tree of DTensors, each
+    gathered whole (its gradient a partial sum over the dp axes, which
+    the gather's backward reduce-scatters onto its placement); each of
+    ``xs`` is a DTensor with the batch first (placed as
+    ``_batch_placements`` says) or anything else, passed as it is; every
+    tensor ``fn`` returns has the batch first.  What ``local_map`` does,
+    for any tree of outputs."""
+    x0 = next(x for x in xs if isinstance(x, DTensor))
+    mesh = x0.device_mesh
+    bpl, gpl = _batch_placements(mesh, x0.shape[0])
+    rep = (Replicate(),) * mesh.ndim
+
+    def local(t, place, grad):
+        return t.redistribute(mesh, place).to_local(grad_placements=grad)
+    lp = tree_map(lambda t: local(t, rep, gpl), params)
+    lx = [local(x, bpl, bpl) if isinstance(x, DTensor) else x for x in xs]
+    return pytree.tree_map(
+        lambda t: DTensor.from_local(t, mesh, bpl, run_check=False)
+        if isinstance(t, torch.Tensor) else t, fn(lp, *lx))
+
+
+def embed_blocks(table: DTensor, tokens: DTensor) -> DTensor:
+    """``table[tokens]`` on each rank's blocks: the rank looks up the
+    table rows it holds (zeros for the others), and the rows are summed
+    over the mesh dims that cut the vocabulary (an all-reduce whose
+    backward is the identity: every rank then runs the same
+    downstream).  DTensor's own rule for a vocab-cut ``F.embedding``
+    keeps the sum pending with a mask that its backward cannot take from
+    a partial gradient."""
+    mesh = table.device_mesh
+    bpl, gpl = _batch_placements(mesh, tokens.shape[0])
+    cuts = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    shape, offset = compute_local_shape_and_global_offset(
+        table.shape, mesh, table.placements)
+    tgrad = tuple(table.placements[i] if i in cuts else g
+                  for i, g in enumerate(gpl))
+
+    def local(block, ids):
+        if not cuts:                    # the plain lookup
+            return block[ids.long()]
+        ids = ids.long() - offset[0]
+        held = (ids >= 0) & (ids < shape[0])
+        rows = block[torch.where(held, ids, 0)]
+        rows = rows * held[..., None].to(rows.dtype)
+        for i in cuts:
+            rows = _CombineOverEp.apply(rows, mesh.get_group(i), False)
+        return rows
+    return local_map(local, out_placements=(bpl,),
+                     in_placements=(table.placements, bpl),
+                     in_grad_placements=(tgrad, bpl), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
+
+
+def _put(cache: torch.Tensor, pos: int, new: torch.Tensor) -> None:
+    """``cache[:, pos] = new`` in place.  On a DTensor cache (its
+    sequence cut over "model", or over every axis for a batch that does
+    not divide) the rank whose block holds ``pos`` writes ``new`` there,
+    placed as the cache without its sequence dim; DTensor has no
+    in-place rule for a write into a cut dimension."""
+    if not isinstance(cache, DTensor):
+        cache[:, pos] = new.to(cache.dtype)
+        return
+    place = [Shard(p.dim - (p.dim > 1)) if isinstance(p, Shard)
+             and p.dim != 1 else Replicate() for p in cache.placements]
+    new = new.redistribute(cache.device_mesh, place).to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        cache.shape, cache.device_mesh, cache.placements)
+    at = pos - offset[1]
+    if 0 <= at < shape[1]:
+        cache.to_local()[:, at] = new.to(cache.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -92,6 +243,111 @@ def _attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
     return m
 
 
+def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n * hd) -> (B, S, n, hd).  A DTensor whose last dim is cut
+    over more ranks than divide ``n`` is gathered along it first (its
+    gradient cut back in the backward): DTensor has no rule for a view
+    that splits a cut dim unevenly."""
+    if isinstance(t, DTensor):
+        cut = [i for i, p in enumerate(t.placements)
+               if p == Shard(t.dim() - 1)]
+        if n % math.prod(t.device_mesh.size(i) for i in cut):
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if i in cut else p
+                for i, p in enumerate(t.placements)])
+    return t.reshape(*t.shape[:-1], n, hd)
+
+
+def _merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, n, hd) -> (B, S, n * hd).  On a DTensor the gradient is
+    placed as the value before the view's backward splits it again (it
+    may arrive cut over more ranks than divide n)."""
+    out = t.reshape(*t.shape[:-2], -1)
+    return _Place.apply(out, out.placements) \
+        if isinstance(out, DTensor) else out
+
+
+def _attend(cfg: ArchConfig, q, k, v, q_norm, k_norm, positions, *,
+            window: int, prefix_len: int, causal: bool, cross: bool,
+            kv_index: Optional[torch.Tensor] = None):
+    """The attention core after the projections: q (B, S, H, hd), k/v
+    (B, Sk, K, hd) -> (out (B, S, H, hd), k, v), k and v normed and
+    rotated as the cache keeps them.  ``positions`` has one row per batch
+    row or one for all.  ``kv_index`` names each q head's kv head where
+    the kv heads are not in q's groups (a rank holding some q heads of
+    every kv head)."""
+    B, S, H, hd = q.shape
+    if cfg.qk_norm:
+        q = rms_norm(q, q_norm)
+        if not cross:
+            k = rms_norm(k, k_norm)
+    if cfg.use_rope and not cross:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    kk, vv = k, v
+    if kv_index is not None:
+        kk, vv = k.index_select(2, kv_index), v.index_select(2, kv_index)
+    K = kk.shape[2]
+    q = q.reshape(B, S, K, H // K, hd)
+    k_pos = torch.arange(k.shape[1], device=q.device)[None] if cross \
+        else positions
+    scale = hd ** -0.5
+    sm_dt = getattr(torch, cfg.attn_softmax_dtype)
+    scores = torch.einsum("bskgh,btkh->bkgst", q, kk) * scale
+    mask = _attn_mask(positions, k_pos, window, prefix_len, causal)
+    scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
+    probs = torch.softmax(scores.to(sm_dt), dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, vv)
+    return out.reshape(B, S, H, hd), k, v
+
+
+def _attend_blocks(cfg: ArchConfig, q, k, v, q_norm, k_norm, positions,
+                   **kw):
+    """``_attend`` on each rank's blocks: the batch cut over the dp axes
+    where they divide it, the q heads over "model" where it divides
+    them, the kv heads with them where it divides those too (each rank
+    then holds whole groups), else every kv head on every rank, each q
+    head reading its own (``kv_index``).  The dims DTensor would have to
+    propagate through the two 5-d einsums instead, on a 3-axis mesh,
+    take it minutes a layer."""
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    bpl, gpl = _batch_placements(mesh, q.shape[0])
+    H, K = q.shape[2], k.shape[2]
+    tp = mesh.size(names.index("model")) if "model" in names else 1
+    q_cut = H % tp == 0 and tp > 1
+    kv_cut = q_cut and K % tp == 0
+
+    def place(cut, partial_when_uncut):
+        return tuple(Shard(2) if a == "model" and cut else
+                     Partial() if a == "model" and partial_when_uncut
+                     else b for a, b in zip(names, bpl))
+    qpl, kvpl = place(q_cut, False), place(kv_cut, False)
+    kvgrad = place(kv_cut, q_cut)       # kv read by this rank's q heads
+    wgrad = tuple(Partial() if a == "model" and q_cut else g
+                  for a, g in zip(names, gpl))
+    kv_index = None
+    if q_cut and not kv_cut:
+        Hl = H // tp
+        h0 = mesh.get_local_rank("model") * Hl
+        kv_index = torch.div(torch.arange(h0, h0 + Hl, device=q.device),
+                             H // K, rounding_mode="floor")
+    rep = (Replicate(),) * mesh.ndim
+    norms = [t for t in (q_norm, k_norm) if t is not None]
+
+    def local(ql, kl, vl, *ns):
+        qn = ns[0] if q_norm is not None else None
+        kn = ns[-1] if k_norm is not None else None
+        return _attend(cfg, ql, kl, vl, qn, kn, positions[:1],
+                       kv_index=kv_index, **kw)
+    return local_map(local, out_placements=(qpl, kvpl, kvpl),
+                     in_placements=(qpl, kvpl, kvpl) + (rep,) * len(norms),
+                     in_grad_placements=(qpl, kvgrad, kvgrad)
+                     + (wgrad,) * len(norms),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, k, v, *norms)
+
+
 def attention(p: Dict[str, torch.Tensor], cfg: ArchConfig, x: torch.Tensor,
               positions: torch.Tensor, *, window: int = 0,
               prefix_len: int = 0,
@@ -101,36 +357,24 @@ def attention(p: Dict[str, torch.Tensor], cfg: ArchConfig, x: torch.Tensor,
 
     x: (B, S, D).  kv_override: use these (B, Sk, K, hd) tensors as K/V
     (cross-attention: only q is normed, no rope, key positions
-    0..Sk-1); otherwise K/V are projected from x."""
+    0..Sk-1); otherwise K/V are projected from x.  On DTensors the core
+    runs on each rank's blocks (``_attend_blocks``); every row of
+    ``positions`` is then the same (as ``forward`` makes them)."""
     B, S, D = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    G = H // K
-    q = (x @ p["wq"]).reshape(B, S, K, G, hd)
-    if kv_override is None:
-        k = (x @ p["wk"]).reshape(B, S, K, hd)
-        v = (x @ p["wv"]).reshape(B, S, K, hd)
-        if cfg.qk_norm:
-            q = rms_norm(q, p["q_norm"])
-            k = rms_norm(k, p["k_norm"])
-        if cfg.use_rope:
-            q = rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta) \
-                .reshape(B, S, K, G, hd)
-            k = rope(k, positions, cfg.rope_theta)
-        k_pos = positions
-    else:
+    q = split_heads(x @ p["wq"], H, hd)
+    cross = kv_override is not None
+    if cross:
         k, v = kv_override
-        if cfg.qk_norm:
-            q = rms_norm(q, p["q_norm"])
-        k_pos = torch.arange(k.shape[1], device=x.device).expand(
-            B, k.shape[1])
-    scale = hd ** -0.5
-    sm_dt = getattr(torch, cfg.attn_softmax_dtype)
-    scores = torch.einsum("bskgh,btkh->bkgst", q, k) * scale
-    mask = _attn_mask(positions, k_pos, window, prefix_len, causal)
-    scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
-    probs = torch.softmax(scores.to(sm_dt), dim=-1).to(x.dtype)
-    out = torch.einsum("bkgst,btkh->bskgh", probs, v).reshape(B, S, H * hd)
-    out = out @ p["wo"]
+    else:
+        k = split_heads(x @ p["wk"], K, hd)
+        v = split_heads(x @ p["wv"], K, hd)
+    attend = _attend_blocks if isinstance(x, DTensor) else _attend
+    out, k, v = attend(cfg, q, k, v, p.get("q_norm") if cfg.qk_norm
+                       else None, p.get("k_norm") if cfg.qk_norm and
+                       not cross else None, positions, window=window,
+                       prefix_len=prefix_len, causal=causal, cross=cross)
+    out = _merge_heads(out) @ p["wo"]
     if return_kv:
         return out, (k, v)
     return out
@@ -158,7 +402,8 @@ def attention_decode(p: Dict[str, torch.Tensor], cfg: ArchConfig,
     B, _, D = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // K
-    q = (x @ p["wq"]).reshape(B, 1, K, G, hd)
+    # on DTensors the cache cuts the sequence, so q keeps every head
+    q = pin_batch(x @ p["wq"]).reshape(B, 1, K, G, hd)
     if cross_kv is not None:
         if cfg.qk_norm:
             q = rms_norm(q, p["q_norm"])
@@ -166,8 +411,8 @@ def attention_decode(p: Dict[str, torch.Tensor], cfg: ArchConfig,
         out = decode_ops.decode_attention(q.reshape(B, K, G, hd), keys,
                                           vals, keys.shape[1] - 1, 0)
         return out.reshape(B, 1, H * hd) @ p["wo"], cache_k, cache_v
-    k = (x @ p["wk"]).reshape(B, 1, K, hd)
-    v = (x @ p["wv"]).reshape(B, 1, K, hd)
+    k = split_heads(x @ p["wk"], K, hd)
+    v = split_heads(x @ p["wv"], K, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -176,8 +421,8 @@ def attention_decode(p: Dict[str, torch.Tensor], cfg: ArchConfig,
         q = rope(q.reshape(B, 1, H, hd), posb, cfg.rope_theta) \
             .reshape(B, 1, K, G, hd)
         k = rope(k, posb, cfg.rope_theta)
-    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+    _put(cache_k, pos, k[:, 0])
+    _put(cache_v, pos, v[:, 0])
     out = decode_ops.decode_attention(q.reshape(B, K, G, hd), cache_k,
                                       cache_v, pos, window)
     return out.reshape(B, 1, H * hd) @ p["wo"], cache_k, cache_v
@@ -398,7 +643,16 @@ def moe_ep(p: Dict[str, torch.Tensor], cfg: ArchConfig, x: torch.Tensor, *,
     combined over the ep group (``_CombineOverEp``).  The reference also
     takes ``dp_axes`` and ``batch_sharded``, which say how ``x`` was
     cut; here ``x`` is already this rank's block and the capacity needs
-    only its size."""
+    only its size.
+
+    On DTensors the layer runs through ``local_map`` with the
+    reference's ``shard_map`` specs: the router whole, the experts cut
+    over ``ep_axis`` (all-gathered over "data", where the placement map
+    cuts them for FSDP), ``x`` cut over the dp axes where they divide
+    the batch; the router's and the experts' gradients come back as
+    partial sums over those axes."""
+    if isinstance(x, DTensor):
+        return _moe_ep_blocks(p, cfg, x, mesh, ep_axis)
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     group = mesh.get_group(ep_axis)
     ep_size = dist.get_world_size(group)
@@ -437,6 +691,25 @@ def moe_ep(p: Dict[str, torch.Tensor], cfg: ArchConfig, x: torch.Tensor, *,
     return out.to(x.dtype).reshape(B, S, D)
 
 
+def _moe_ep_blocks(p, cfg: ArchConfig, x: DTensor, mesh,
+                   ep_axis: str) -> DTensor:
+    bpl, gpl = _batch_placements(mesh, x.shape[0])
+    ep = mesh.mesh_dim_names.index(ep_axis)
+    rep = (Replicate(),) * mesh.ndim
+    epl = tuple(Shard(0) if i == ep else Replicate()
+                for i in range(mesh.ndim))
+    egrad = tuple(Shard(0) if i == ep else g for i, g in enumerate(gpl))
+
+    def local(router, wg, wu, wd, xl):
+        return moe_ep({"router": router, "wg": wg, "wu": wu, "wd": wd},
+                      cfg, xl, mesh=mesh, ep_axis=ep_axis)
+    return local_map(local, out_placements=(bpl,),
+                     in_placements=(rep, epl, epl, epl, bpl),
+                     in_grad_placements=(gpl, egrad, egrad, egrad, bpl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        p["router"], p["wg"], p["wu"], p["wd"], x)
+
+
 # --------------------------------------------------------------------------
 # Mamba2 (SSD) block
 # --------------------------------------------------------------------------
@@ -469,7 +742,10 @@ def ssd_block(p: Dict[str, torch.Tensor], cfg: ArchConfig, x: torch.Tensor):
     """Mamba2 block (prefill). x: (B,S,D) -> (out (B,S,D), (conv_tail
     (B, K-1, d_inner+2N), final_state (B,H,P,N) float32)).  The scan is
     the SSD kernel; xs, Bm and Cm go to it as strided slices of the conv
-    output."""
+    output.  On DTensors it runs on each rank's batch block
+    (``dp_blocks``)."""
+    if isinstance(x, DTensor):
+        return dp_blocks(lambda pp, xx: ssd_block(pp, cfg, xx), p, x)
     B, S, D = x.shape
     din, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     Pd = cfg.ssm_headdim
@@ -493,6 +769,9 @@ def ssd_decode(p: Dict[str, torch.Tensor], cfg: ArchConfig, x: torch.Tensor,
     """Single-token SSD recurrence.  x: (B,1,D); conv_state: (B, K-1, C);
     ssm_state: (B,H,Pd,N) float32.  Returns (out (B,1,D), conv_state,
     ssm_state), new tensors (the caller writes them into its cache)."""
+    if isinstance(x, DTensor):
+        return dp_blocks(lambda pp, *a: ssd_decode(pp, cfg, *a), p, x,
+                         conv_state, ssm_state)
     B, _, D = x.shape
     din, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     Pd = cfg.ssm_headdim

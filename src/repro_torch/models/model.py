@@ -35,6 +35,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
@@ -48,8 +49,8 @@ MoeFn = Callable[..., torch.Tensor]
 @dataclass(frozen=True)
 class MeshInfo:
     """How a step is distributed. None => single-device path.  The
-    reference's ``batch_sharded`` is left out: each rank holds its own
-    batch block, so nothing reads it."""
+    reference's ``batch_sharded`` is left out: the batch's placement
+    says it."""
     mesh: Any                     # a torch DeviceMesh
     dp_axes: Tuple[str, ...]
     ep_axis: str
@@ -317,7 +318,6 @@ def _apply_layer(p, cfg: ArchConfig, spec: LayerSpec, x, positions, *,
                  causal: bool = True, collect: bool = False,
                  max_len: int = 0):
     """Returns (x, cache_entry|None)."""
-    B = x.shape[0]
     entry = None
     h = L.rms_norm(x, p["ln1"])
     if spec.kind == "attn":
@@ -332,19 +332,19 @@ def _apply_layer(p, cfg: ArchConfig, spec: LayerSpec, x, positions, *,
         out, (conv_tail, ssm_state) = L.ssd_block(p["ssm"], cfg, h)
         if collect:
             entry = {"conv": conv_tail, "ssm": ssm_state}
-    x = x + out
+    x = x + L.pin_batch(out)
     if enc_out is not None and "cross" in p:
         K, hd = cfg.num_kv_heads, cfg.head_dim
-        ckv = ((enc_out @ p["cross"]["wk"]).reshape(B, -1, K, hd),
-               (enc_out @ p["cross"]["wv"]).reshape(B, -1, K, hd))
+        ckv = (L.split_heads(enc_out @ p["cross"]["wk"], K, hd),
+               L.split_heads(enc_out @ p["cross"]["wv"], K, hd))
         h = L.rms_norm(x, p["ln_x"])
-        x = x + L.attention(p["cross"], cfg, h, positions, kv_override=ckv,
-                            causal=False)
+        x = x + L.pin_batch(L.attention(p["cross"], cfg, h, positions,
+                                        kv_override=ckv, causal=False))
         if collect:
             entry["cross_k"], entry["cross_v"] = ckv
     f = _ffn(p, cfg, spec, x, moe_fn)
     if f is not None:
-        x = x + f
+        x = x + L.pin_batch(f)
     return x, entry
 
 
@@ -385,14 +385,27 @@ def _run_stack(params, cfg, x, positions, *, prefix_len, moe_fn, enc_out,
     """Head + unrolled superblocks + tail.  With ``remat`` each
     superblock runs under ``torch.utils.checkpoint`` (its activations
     are recomputed in the backward); the head and tail layers do not.
-    Returns (x, caches dict with head/blocks/tail lists)."""
+    On DTensors over a mesh with no "model" cut each layer runs on every
+    rank's batch block with its parameters gathered whole
+    (``layers.dp_blocks``: FSDP a layer at a time, their gradients
+    reduce-scattered in the backward); with a "model" cut, under
+    DTensor's propagation.  Returns (x, caches dict with head/blocks/tail
+    lists)."""
     plan, head, p, n_super, tail = _period_specs(cfg)
     caches: Dict[str, Any] = {"head": [], "blocks": [], "tail": []}
 
-    def one(lp, spec, xx):
-        return _apply_layer(lp, cfg, spec, xx, positions, moe_fn=moe_fn,
-                            prefix_len=prefix_len, enc_out=enc_out,
+    def layer(lp, spec, xx, pos, eo):
+        return _apply_layer(lp, cfg, spec, xx, pos, moe_fn=moe_fn,
+                            prefix_len=prefix_len, enc_out=eo,
                             collect=collect, max_len=max_len)
+
+    def one(lp, spec, xx):
+        if L.data_parallel(xx):         # every rank's whole layer, locally
+            xx, e = L.dp_blocks(lambda pp, xl, eo: layer(
+                pp, spec, xl, positions[:1], eo), lp, xx, enc_out)
+        else:
+            xx, e = layer(lp, spec, xx, positions, enc_out)
+        return L.pin_batch(xx), e
 
     def superblock(xx, s, rows):
         entries = []
@@ -438,6 +451,26 @@ def _encoder_forward(params, cfg: ArchConfig, enc_embeds: torch.Tensor,
     return L.rms_norm(x, params["enc_final_norm"])
 
 
+def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens`` (on DTensors
+    ``layers.embed_blocks``: DTensor has no rule for indexing by a
+    tensor)."""
+    if isinstance(params["embed"], DTensor):
+        return L.embed_blocks(params["embed"], tokens)
+    return params["embed"][tokens.long()]
+
+
+def _summed(x: torch.Tensor) -> torch.Tensor:
+    """A lookup's pending sum over the ranks that cut the looked-up dim,
+    taken now (a DTensor's partial placements made replicated; plain
+    tensors as they are).  DTensor keeps a lookup's pending sum with a
+    mask of the lookup's shape, good for one reduction of that shape."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in x.placements])
+
+
 def _logits(params, cfg, x):
     x = L.rms_norm(x, params["final_norm"])
     head_w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -455,7 +488,7 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     dt = _dtype(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = params["embed"][tokens.long()].to(dt)
+    x = L.pin_batch(_embed(params, tokens).to(dt))
     prefix_len = 0
     enc_out = None
     if cfg.frontend == "vision_stub":
@@ -484,7 +517,7 @@ def lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
     preds = logits[:, prefix_len:prefix_len + tokens.shape[1] - 1, :].float()
     labels = tokens[:, 1:].long()
     logz = torch.logsumexp(preds, dim=-1)
-    gold = torch.gather(preds, -1, labels[..., None])[..., 0]
+    gold = _summed(torch.gather(preds, -1, labels[..., None]))[..., 0]
     return torch.mean(logz - gold)
 
 
@@ -520,7 +553,7 @@ def decode_step(params: Params, cfg: ArchConfig, cache, tokens: torch.Tensor,
     superblock count is 1; with both above 1 (gemma3-27b: 6 x 10) it
     applies the layers out of order and disagrees with its own forward
     (ROADMAP Queue 3)."""
-    x = params["embed"][tokens.long()].to(_dtype(cfg))
+    x = L.pin_batch(_embed(params, tokens).to(_dtype(cfg)))
     plan, head, p, n_super, tail = _period_specs(cfg)
 
     def dec_layer(lp, spec, xx, entry):
@@ -534,15 +567,15 @@ def decode_step(params: Params, cfg: ArchConfig, cache, tokens: torch.Tensor,
                                           entry["ssm"])
             entry["conv"].copy_(conv)
             entry["ssm"].copy_(ssm)
-        xx = xx + out
+        xx = xx + L.pin_batch(out)
         if "cross_k" in entry:
             ckv = (entry["cross_k"], entry["cross_v"])
             out, _, _ = L.attention_decode(lp["cross"], cfg,
                                            L.rms_norm(xx, lp["ln_x"]),
                                            *ckv, pos, cross_kv=ckv)
-            xx = xx + out
+            xx = xx + L.pin_batch(out)
         f = _ffn(lp, cfg, spec, xx, moe_fn)
-        return xx if f is None else xx + f
+        return xx if f is None else xx + L.pin_batch(f)
 
     for i in range(head):
         x = dec_layer(params["head"][i], plan[i], x, cache["head"][i])

@@ -2,25 +2,40 @@
 prefill and decode, with or without a mesh.
 
 Without a mesh (``mesh_info=None``) the MoE layers run ``moe_dense``;
-on a mesh they run ``moe_ep`` on this rank's batch block and experts,
-as the reference's steps run its ``shard_map`` MoE.  The reference
-also pins the residual stream to batch-over-dp with a sharding
-constraint (its ``make_shard_act``); here each rank already holds its
-own batch block, so that has no counterpart.  A train step on a mesh is
-data-parallel with replicated parameters and AdamW state: each
-rank takes the gradient of its own block's loss, the gradients are
-averaged over the dp group, and every replica applies the same update.
+on a mesh they run ``moe_ep``, as the reference's steps run its
+``shard_map`` MoE.  On a mesh the steps take the state, the parameters,
+the batch and the cache as DTensors placed by the spec trees
+(``launch.shardings.distribute`` of ``train_state_specs``,
+``param_specs``, ``batch_specs``, ``cache_specs_tree``): the
+counterpart of ``jax.jit(..., in_shardings=...)``.  DTensor's sharding
+propagation then inserts what GSPMD inserts: the FSDP all-gathers of the
+parameters cut over "data" and their reduce-scatters in the backward,
+the TP reductions over "model", and the reductions of the loss and of
+the global grad norm over every rank; ``moe_ep`` and the SSM layers run
+on each rank's blocks through ``local_map``.  The loss is the global
+batch's mean.  Each gradient is placed as its parameter before AdamW,
+which updates every rank's blocks in place.  The reference pins the
+residual stream to batch-over-dp with a sharding constraint (its
+``make_shard_act``); the port's model does the same on DTensors
+(``layers.pin_batch``, at each layer's end and each sublayer's output,
+in the forward and the backward).
+
+Plain tensors on a mesh are a one-rank mesh's whole state (the steps
+then run the plain operations, ``moe_ep`` included); a mesh of more
+ranks needs DTensors.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable, Optional, Tuple
 
 import torch
-import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import shardings as sh
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
@@ -40,21 +55,27 @@ def loss_and_grads(params, cfg: ArchConfig, batch, moe_fn=L.moe_dense
                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """The loss (detached) and every parameter leaf's gradient, in
     ``tree_leaves``' order.  The parameters become leaf tensors that
-    require grad; no ``.grad`` is kept."""
+    require grad; no ``.grad`` is kept.  On DTensors each gradient comes
+    back placed as its parameter."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    loss = M.loss_fn(params, cfg, batch, moe_fn)
-    return loss.detach(), torch.autograd.grad(loss, leaves)
+    with implicit_replication():      # positions, masks beside DTensors
+        loss = M.loss_fn(params, cfg, batch, moe_fn)
+        grads = torch.autograd.grad(loss, leaves)
+        grads = tuple(g.redistribute(p.device_mesh, p.placements)
+                      if isinstance(p, DTensor) else g
+                      for p, g in zip(leaves, grads))
+    return loss.detach(), grads
 
 
-def _mean_over(group, n: int, tensors) -> None:
-    """Each tensor replaced in place by its mean over ``group`` (``n``
-    ranks): a sum, then a division (gloo has no average)."""
-    for t in tensors:
-        dist.all_reduce(t, group=group)
-        if n > 1:
-            t.div_(n)
+def _check_placed(mesh_info: Optional[M.MeshInfo], tree) -> None:
+    if mesh_info is None or math.prod(mesh_info.mesh.shape) == 1:
+        return
+    if not isinstance(tree_leaves(tree)[0], DTensor):
+        raise ValueError(f"a step over a {tuple(mesh_info.mesh.shape)} "
+                         "mesh takes DTensors: place the tree with "
+                         "launch.shardings.distribute")
 
 
 def make_train_step(cfg: ArchConfig, opt: AdamWConfig,
@@ -63,36 +84,18 @@ def make_train_step(cfg: ArchConfig, opt: AdamWConfig,
     and every parameter's gradient (the parameters are leaf tensors that
     require grad), then ``adamw_update`` in place.  The gradients are
     dropped after the update.  ``batch`` holds ``tokens`` (B, S) int32
-    and a frontend's embeddings, on the parameters' device: on a mesh,
-    this rank's block of the global batch.  There the gradients and the
-    loss are averaged over the dp group before the update, so the
-    replicas stay equal and the loss is the global batch's.  The state
-    is replicated, so the ep axis must be of size 1 (the global grad norm
-    would otherwise need the other ranks' experts), and there is one dp
-    axis (the trainer's "data")."""
+    and a frontend's embeddings, on the parameters' device (DTensors
+    placed by ``batch_specs`` on a mesh).  The loss and the grad norm come
+    back as plain 0-d tensors, the same on every rank."""
     moe_fn = make_moe_fn(mesh_info)
-    dp = None
-    if mesh_info is not None:
-        sizes = mesh_lib.axis_sizes(mesh_info.mesh)
-        if sizes[mesh_info.ep_axis] != 1:
-            raise ValueError(
-                f"a train step over an ep axis of {sizes[mesh_info.ep_axis]}"
-                " needs sharded AdamW state; the port's is replicated")
-        if len(mesh_info.dp_axes) != 1:
-            raise ValueError(f"one data-parallel axis, not "
-                             f"{mesh_info.dp_axes}")
-        axis, = mesh_info.dp_axes
-        dp = (mesh_info.mesh.get_group(axis), sizes[axis])
 
     def train_step(state, batch):
+        _check_placed(mesh_info, state["params"])
         loss, grads = loss_and_grads(state["params"], cfg, batch, moe_fn)
-        if dp is not None:
-            loss = loss.clone()
-            _mean_over(*dp, (loss,) + grads)
         grads = iter(grads)
         state, gnorm = adamw_update(state, tree_map(lambda _: next(grads),
                                                     state["params"]), opt)
-        return state, {"loss": loss, "grad_norm": gnorm}
+        return state, {"loss": sh.full(loss), "grad_norm": sh.full(gnorm)}
 
     return train_step
 
@@ -102,7 +105,10 @@ def make_prefill_step(cfg: ArchConfig, max_len: int,
     moe_fn = make_moe_fn(mesh_info)
 
     def prefill_step(params, batch):
-        return M.prefill(params, cfg, batch, max_len=max_len, moe_fn=moe_fn)
+        _check_placed(mesh_info, params)
+        with implicit_replication():
+            return M.prefill(params, cfg, batch, max_len=max_len,
+                             moe_fn=moe_fn)
 
     return prefill_step
 
@@ -112,6 +118,9 @@ def make_decode_step(cfg: ArchConfig,
     moe_fn = make_moe_fn(mesh_info)
 
     def decode_step(params, cache, tokens, pos):
-        return M.decode_step(params, cfg, cache, tokens, pos, moe_fn=moe_fn)
+        _check_placed(mesh_info, params)
+        with implicit_replication():
+            return M.decode_step(params, cfg, cache, tokens, pos,
+                                 moe_fn=moe_fn)
 
     return decode_step

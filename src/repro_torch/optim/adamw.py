@@ -19,6 +19,15 @@ eps)`` into one division ``m / (bc1 * (sqrt(v̂) + eps))``.  XLA also
 contracts some of the products into fused multiply-adds, which eager
 PyTorch does not; ``tests/test_torch_train.py`` holds each output
 elementwise to the reference and reports the largest ulp gap.
+
+On DTensor leaves (a state placed by ``launch.shardings.distribute``,
+each gradient placed as its parameter) a leaf's sum of squares is a
+partial sum over the mesh dims that cut it; DTensor reduces the partial
+sums over every rank when the square root needs the whole, so the
+global norm is the whole gradient's.  Then every rank updates its own
+blocks (p, g, m and v are placed alike) as plain local tensors, row by
+row as above (the stacked dim is never cut): the update is elementwise
+and needs nothing of the other ranks.
 """
 from __future__ import annotations
 
@@ -26,6 +35,8 @@ from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.device import recip32
 from repro_torch.tree import tree_leaves, tree_map, walk
@@ -78,6 +89,12 @@ def _schedule(opt: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return opt.lr * warm
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local block (a view: in-place writes reach it), else
+    ``t``."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def _rows(leaf: torch.Tensor, stacked: bool):
     return leaf.unbind(0) if stacked else (leaf,)
 
@@ -120,6 +137,11 @@ def adamw_update(state: TrainState, grads, opt: AdamWConfig):
     """One AdamW step.  Writes the new params, m and v into the state's
     tensors and returns ``({"params", "m", "v", "step": step + 1},
     global grad norm)``."""
+    with implicit_replication():      # the constants beside DTensors
+        return _adamw_update(state, grads, opt)
+
+
+def _adamw_update(state: TrainState, grads, opt: AdamWConfig):
     step = state["step"] + 1
     flat = list(zip(walk(state["params"]), tree_leaves(grads),
                     tree_leaves(state["m"]), tree_leaves(state["v"])))
@@ -130,15 +152,15 @@ def adamw_update(state: TrainState, grads, opt: AdamWConfig):
     gnorm = torch.sqrt(sq)
     clip = torch.tensor(opt.clip_norm, dtype=torch.float32,
                         device=gnorm.device)
-    scale = torch.clamp(clip / (gnorm + 1e-9), max=1.0)
-    lr = _schedule(opt, step)
-    t = step.float()
+    scale = _local(torch.clamp(clip / (gnorm + 1e-9), max=1.0))
+    lr = _local(_schedule(opt, step))
+    t = _local(step).float()
     bc1 = 1.0 - torch.pow(torch.tensor(opt.b1, dtype=torch.float32,
                                        device=t.device), t)
     bc2 = 1.0 - torch.pow(torch.tensor(opt.b2, dtype=torch.float32,
                                        device=t.device), t)
     for (_, stacked, p), g, m, v in flat:
-        for rows in zip(*(_rows(a, stacked) for a in (p, g, m, v))):
+        for rows in zip(*(_rows(_local(a), stacked) for a in (p, g, m, v))):
             _update(*rows, scale, lr, bc1, bc2, opt)
     return {"params": state["params"], "m": state["m"], "v": state["v"],
             "step": step}, gnorm

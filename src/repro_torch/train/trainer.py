@@ -17,12 +17,16 @@ the fly, when there is no group).  The mesh is ``(n, 1)`` over
 ``_build`` makes it, so the MoE layers run the reference's
 capacity-limited ``moe_ep`` on one device too.  Only rank 0's broker
 decides: it says ``n`` every step and rank 0 broadcasts it.  Ranks
-outside the mesh sit the step out.  On a resize every rank receives rank
-0's state by broadcast (the reference's host snapshot) and keeps its
-block of it.  Parameters and AdamW state are replicated over "data"
-(DDP; see ``launch/shardings.py``), each rank takes its block of the
-global batch, and only rank 0 writes checkpoints.  Every rank reports
-rank 0's losses.  The reference's ``TrainConfig.log_every`` (read
+outside the mesh sit the step out.  The state is held as DTensors in
+the reference's placements (``train_state_specs``: the parameters and
+the AdamW state FSDP-sharded over "data"), and the batch as the global
+batch cut over "data".  A checkpoint gathers the state whole
+(``full_tensor``) and rank 0 writes it; on a resize the old mesh gathers
+it, every rank receives rank 0's copy by broadcast (the reference's host
+snapshot) and the new mesh distributes it; a restore distributes the
+checkpoint onto the mesh.  ``run`` ends with the state gathered whole
+on the mesh's ranks (plain tensors), as the reference's sharded arrays
+read whole.  Every rank reports rank 0's losses.  The reference's ``TrainConfig.log_every`` (read
 nowhere) and ``scan_layers`` (the port's layers run unrolled) are left
 out.
 """
@@ -148,11 +152,10 @@ class Trainer:
         mi = M.MeshInfo(self.mesh, ("data",), "model")
         self._train_step = S.make_train_step(self.cfg, self.opt, mi) \
             if in_mesh(self.mesh) else None
-        self._place = sh.replicated_over(
-            sh.train_state_specs(self.cfg, self.mesh), mi.dp_axes)
+        self._place = sh.train_state_specs(self.cfg, self.mesh)
         self._bspec = sh.batch_specs(self.cfg, self.mesh,
                                      self.data_cfg.global_batch)
-        self.state = sh.local_shards(state, self._place, self.mesh) \
+        self.state = sh.distribute(state, self._place, self.mesh) \
             if state is not None and in_mesh(self.mesh) else None
 
     def _step(self, state, batch):
@@ -166,6 +169,10 @@ class Trainer:
 
     def _template(self):
         return abstract_train_state(M.abstract_params(self.cfg), self.opt)
+
+    def _whole(self):
+        """The state gathered whole on the mesh's ranks (None outside)."""
+        return sh.full(self.state) if in_mesh(self.mesh) else None
 
     def _share(self, state):
         """Rank 0's whole state on every rank (each leaf broadcast)."""
@@ -195,13 +202,10 @@ class Trainer:
         start = self._agree(-1 if latest is None else latest)
         self._build(n_dev, None)
         if in_mesh(self.mesh):
-            if start >= 0:
-                self.state = sh.local_shards(
-                    self.ckpt.restore(start, self._template(), self.device),
-                    self._place, self.mesh)
-            else:
-                self.state = sh.local_shards(self._init_state(),
-                                             self._place, self.mesh)
+            self.state = sh.distribute(
+                self.ckpt.restore(start, self._template(), self.device)
+                if start >= 0 else self._init_state(), self._place,
+                self.mesh)
         if start >= 0:
             rep.restores += 1
         start = max(start, 0)
@@ -214,14 +218,13 @@ class Trainer:
                 # elastic re-mesh: rank 0's state -> rebuild -> go on
                 rep.resizes.append((step, n_dev, want))
                 n_dev = want
-                self._build(n_dev, self._share(self.state))
+                self._build(n_dev, self._share(self._whole()))
             dt = 0.0
             loss = float("nan")
             if in_mesh(self.mesh):
-                batch = sh.local_shards(
-                    {k: torch.from_numpy(v) for k, v in
+                batch = sh.distribute(
+                    {k: torch.from_numpy(v).to(self.device) for k, v in
                      self.data.batch(step).items()}, self._bspec, self.mesh)
-                batch = {k: v.to(self.device) for k, v in batch.items()}
                 sync()
                 t0 = time.perf_counter()
                 self.state, metrics = self._step(self.state, batch)
@@ -237,8 +240,12 @@ class Trainer:
             rep.losses.append(self._agree(loss, torch.float64))
             rep.step_s.append(dt)
             rep.steps_done = step + 1
-            if (step + 1) % tc.checkpoint_every == 0 and rank0:
-                self.ckpt.save(step + 1, self.state,
-                               blocking=not tc.async_checkpoint)
+            if (step + 1) % tc.checkpoint_every == 0:
+                whole = self._whole()           # collective on the mesh
+                if rank0:
+                    self.ckpt.save(step + 1, whole,
+                                   blocking=not tc.async_checkpoint)
+                del whole
+        self.state = self._whole()
         self.ckpt.wait()
         return rep

@@ -1035,10 +1035,14 @@ def test_trainer_resizes_across_cards(tmp_path):
     ranks, each on its own card (NCCL for CUDA tensors; ``spawn_local``
     sets no ``LOCAL_RANK``, so each rank binds the card of its rank),
     grows from one card to two at step 4: both ranks report ``resizes ==
-    [(4, 1, 2)]``, the replicas' states are bit-equal after each of steps
-    4-7, and the losses equal those of the same run on two CPU gloo
-    ranks within 1e-4 (reduced OLMoE, float32, capacity factor 1.0; both
-    resumed from one step-0 checkpoint).  Needs two cards."""
+    [(4, 1, 2)]``; at the resize each rank receives rank 0's whole state
+    after step 3 (its digest) and keeps its FSDP block of it; after each
+    step each rank's blocks are that block of the state gathered whole,
+    the two ranks' blocks differ after each of steps 4-7 and the
+    gathered states are bit-equal; and the losses equal those of the
+    same run on two CPU gloo ranks within 1e-4 (reduced OLMoE, float32,
+    capacity factor 1.0; both resumed from one step-0 checkpoint).
+    Needs two cards."""
     _need_cuda()
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices (one NCCL rank per card)")
@@ -1070,6 +1074,11 @@ def test_trainer_resizes_across_cards(tmp_path):
         assert int(g["restores"]) == 1
     assert card[1]["digest_steps"].tolist() == [4, 5, 6, 7]
     np.testing.assert_array_equal(card[0]["digests"][4:], card[1]["digests"])
+    for g in card:
+        np.testing.assert_array_equal(g["local_digests"], g["shard_digests"])
+        np.testing.assert_array_equal(g["resize_in"], card[0]["digests"][3:4])
+        np.testing.assert_array_equal(g["resize_blocks"], g["resize_shards"])
+    assert (card[0]["local_digests"][4:] != card[1]["local_digests"]).all()
     np.testing.assert_allclose(card[0]["losses"], got["cpu"][0]["losses"],
                                rtol=0, atol=1e-4)
 
@@ -1131,3 +1140,102 @@ def test_ssd_grad_on_card_matches_cpu(B, S, H, P, N, chunk):
     for g, c in zip(grads("cuda"), grads("cpu")):
         assert float(c.abs().max()) > 0
         torch.testing.assert_close(g.cpu(), c, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-780m"])
+def test_dtensor_step_on_card_matches_plain(arch):
+    """``make_train_step`` over the one-rank (1, 1) NCCL mesh with the
+    state as DTensors placed by ``train_state_specs`` (the router inside
+    ``moe_ep``'s ``local_map``, the scan inside the SSM layers') against
+    the same step on plain tensors: one rank runs the same local
+    operations, so 3 steps' losses and grad norms and the parameters
+    after them are equal, and both launch the kernels as often."""
+    _need_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.kernels.moe_route import kernel as RK
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.models import steps as TS
+    from repro_torch.optim import AdamWConfig, make_train_state
+    from repro_torch.tree import tree_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    mi = TM.MeshInfo(mesh, ("data",), "model")
+    opt = AdamWConfig(lr=1e-2, warmup_steps=2)
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, 20, 2, 0))
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    step = TS.make_train_step(cfg, opt, mi)
+    runs = []
+    for placed in (False, True):
+        st = make_train_state(_train_copy(params, "cuda"), opt)
+        if placed:
+            st = SH.distribute(st, SH.train_state_specs(cfg, mesh), mesh)
+        before = (RK.LAUNCHES, SK.LAUNCHES)
+        metrics = []
+        for i in range(3):
+            b = {"tokens": torch.from_numpy(data.batch(i)["tokens"]).cuda()}
+            if placed:
+                b = SH.distribute(b, SH.batch_specs(cfg, mesh, 2), mesh)
+            st, m = step(st, b)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs.append((metrics, [t.detach().cpu() for t in
+                               tree_leaves(SH.full(st["params"]))],
+                     (RK.LAUNCHES - before[0], SK.LAUNCHES - before[1])))
+    (plain, p_plain, n_plain), (dt, p_dt, n_dt) = runs
+    np.testing.assert_allclose(dt, plain, rtol=1e-6, atol=0)
+    for a, b in zip(p_dt, p_plain):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    assert n_dt == n_plain and sum(n_dt) > 0
+
+
+@pytest.mark.cuda
+def test_dtensor_decode_on_card_matches_plain():
+    """Prefill and two decode steps of reduced gemma3 (windowed and
+    global layers) over the one-rank (1, 1) NCCL mesh on DTensors placed
+    by ``param_specs`` and ``cache_specs_tree`` against the same steps on
+    plain tensors: the decode kernel runs on each rank's blocks
+    (``local_map``; the cache's sequence is cut over one rank), the
+    logits agree within 1e-5 (float32, no TF32) and both launch it as
+    often."""
+    _need_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.models import steps as TS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("gemma3-27b").reduced()
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    mi = TM.MeshInfo(mesh, ("data",), "model")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 20), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1)).cuda()
+    runs = []
+    for placed in (False, True):
+        p = SH.distribute(params, SH.param_specs(cfg, mesh), mesh) \
+            if placed else params
+        batch = {"tokens": toks}
+        if placed:
+            batch = SH.distribute(batch, SH.batch_specs(cfg, mesh, 2), mesh)
+        logits, cache = TS.make_prefill_step(cfg, 24, mi)(p, batch)
+        if placed:
+            cache = SH.distribute(cache, SH.cache_specs_tree(cfg, mesh, 2),
+                                  mesh)
+        before = DK.LAUNCHES
+        out = [SH.full(logits)]
+        for pos in (20, 21):
+            tok = out[-1][:, -1].argmax(-1).to(torch.int32)[:, None]
+            if placed:
+                tok = SH.distribute(tok, SH.P(("data",), None), mesh)
+            logits, cache = TS.make_decode_step(cfg, mi)(p, cache, tok, pos)
+            out.append(SH.full(logits))
+        runs.append((torch.cat(out, 1).cpu(), DK.LAUNCHES - before))
+    (plain, n_plain), (dt, n_dt) = runs
+    torch.testing.assert_close(dt, plain, rtol=0, atol=1e-5)
+    assert n_dt == n_plain == 2 * cfg.num_layers

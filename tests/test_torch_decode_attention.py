@@ -104,11 +104,18 @@ def test_decode_plain_fully_masked_is_uniform():
 
 
 def test_decode_ops_dispatch_by_device():
+    """A CPU tensor takes the plain version, and so does a ``meta`` one
+    (shapes and dtypes only: the dry run traces there); any other device
+    is an error."""
+    from test_torch_dryrun import OtherDevice
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 32, 2, 1, 16, 1))
-    assert torch.equal(ops.decode_attention(q, k, v, torch.tensor(7)),
-                       decode_attention_ref(q, k, v, 7))
+    want = decode_attention_ref(q, k, v, 7)
+    assert torch.equal(ops.decode_attention(q, k, v, torch.tensor(7)), want)
+    meta = ops.decode_attention(q.to("meta"), k.to("meta"), v.to("meta"), 7)
+    assert (meta.shape, meta.dtype, meta.is_meta) == \
+        (want.shape, want.dtype, True)
     with pytest.raises(ValueError, match="device"):
-        ops.decode_attention(q.to("meta"), k.to("meta"), v.to("meta"), 7)
+        ops.decode_attention(*map(OtherDevice, (q, k, v)), 7)
 
 
 # ---------------------------------------------- the CUDA kernel's algebra

@@ -304,7 +304,7 @@ def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "profile_epoch.py",
               ROOT / "profile_serve.py", ROOT / "profile_clear.py",
-              ROOT / "profile_route.py",
+              ROOT / "profile_route.py", ROOT / "profile_trainer.py",
               ROOT / "tests" / "torch_schema_cases.py"]
     return files
 
@@ -312,7 +312,7 @@ def _port_files():
 def test_port_imports_neither_jax_nor_repro():
     """Every module of the port, chip_smoke.py, the profilers
     (profile_epoch.py, profile_serve.py, profile_clear.py,
-    profile_route.py) and the break cases chip_smoke.py shares with the
+    profile_route.py, profile_trainer.py) and the break cases chip_smoke.py shares with the
     tests (tests/torch_schema_cases.py) import no
     ``jax`` (or ``jaxlib``) and nothing of the ``repro`` package."""
     banned = {"jax", "jaxlib", "repro"}

@@ -14,7 +14,8 @@ state: the reference's, written as a step-0 checkpoint by its
 Tolerances: placement trees and configs equal; ``moe_ep``'s ``buf_tok``
 exactly, its output and every gradient within 1e-5 (float32); the
 trainers' losses within 1e-5 at step 0 and 1e-3 at every step; the
-replicas' states bit-equal.
+train state's digests (whole and each rank's block) bit-equal where they
+must be.
 """
 import dataclasses
 import gc
@@ -414,8 +415,13 @@ def test_elastic_resize_matches_reference(tmp_path):
     batch: 32 slots an expert on one rank, 16 on two): both ranks report
     ``resizes == [(8, 1, 2)]`` and the losses of the reference's elastic
     run on 2 host devices within 1e-3 (step 0 within 1e-5); rank 1 sits
-    out steps 0-7, and after each of steps 8-15 the two replicas' states
-    are bit-equal."""
+    out steps 0-7.  The state is FSDP-sharded over "data": at the resize
+    each rank receives rank 0's whole state after step 7 (its digest)
+    and keeps its ``NamedSharding`` block of it; after each step each
+    rank's blocks are that block of the state gathered whole, the two
+    ranks' blocks differ after each of steps 8-15 and the gathered
+    states are bit-equal.  (The state after a resize is held to the
+    reference's in ``tests/test_torch_sharded.py``.)"""
     from conftest import run_with_devices
     jcfg, cfg = _cfgs("olmoe-1b-7b", **DROP)
     opt_kw = dict(lr=1e-2, warmup_steps=2)
@@ -440,6 +446,11 @@ def test_elastic_resize_matches_reference(tmp_path):
     assert got[0]["digest_steps"].tolist() == list(range(16))
     assert got[1]["digest_steps"].tolist() == list(range(8, 16))
     np.testing.assert_array_equal(got[0]["digests"][8:], got[1]["digests"])
+    for g in got:
+        np.testing.assert_array_equal(g["local_digests"], g["shard_digests"])
+        np.testing.assert_array_equal(g["resize_in"], got[0]["digests"][7:8])
+        np.testing.assert_array_equal(g["resize_blocks"], g["resize_shards"])
+    assert (got[0]["local_digests"][8:] != got[1]["local_digests"]).all()
 
 
 _REF_MARKET = """

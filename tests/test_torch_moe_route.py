@@ -111,17 +111,22 @@ def test_route_ties_lowest_index_first(renorm):
 
 def test_route_ops_dispatch_by_device():
     """A CPU tensor takes the plain version (``route_dense``: top-k and
-    dense weights); k outside [1, E] raises; a device with no router
-    raises rather than falling back."""
+    dense weights), and so does a ``meta`` one (shapes and dtypes only:
+    the dry run traces there); k outside [1, E] raises; a device with no
+    router raises rather than falling back."""
+    from test_torch_dryrun import OtherDevice
     x = torch.from_numpy(_logits(7, 60))
     got = ops.route_dense(x, 8, True, torch.bfloat16)
     want = route_dense_ref(x, 8, True, torch.bfloat16)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert got[2].dtype == torch.bfloat16 and got[2].shape == (7, 60)
+    meta = ops.route_dense(x.to("meta"), 8, True, torch.bfloat16)
+    assert [(t.shape, t.dtype, t.is_meta) for t in meta] == \
+        [(t.shape, t.dtype, True) for t in want]
     with pytest.raises(ValueError):
         route_ref(x, 61)
     with pytest.raises(ValueError, match="device"):
-        ops.route_dense(x.to("meta"), 8, True, torch.bfloat16)
+        ops.route_dense(OtherDevice(x), 8, True, torch.bfloat16)
 
 
 # ---------------------------------------------------- dense combine weights

@@ -131,14 +131,19 @@ def test_ssd_plain_reads_strided_slices():
 
 
 def test_ops_dispatch():
-    """A CPU tensor takes the plain version, bit for bit; any device
-    other than CPU and CUDA is an error."""
+    """A CPU tensor takes the plain version, bit for bit, and so does a
+    ``meta`` one (shapes and dtypes only: the dry run traces there); any
+    other device is an error."""
+    from test_torch_dryrun import OtherDevice
     args = tuple(torch.from_numpy(a) for a in _inputs(1, 24, 2, 16, 16, 5))
     y0, s0 = ssd_scan_ref(*args, 16)
     y1, s1 = ops.ssd_scan(*args, chunk=16)
     assert torch.equal(y0, y1) and torch.equal(s0, s1)
+    ym, sm = ops.ssd_scan(*(a.to("meta") for a in args), chunk=16)
+    assert (ym.shape, ym.dtype, sm.shape, sm.dtype) == \
+        (y0.shape, y0.dtype, s0.shape, s0.dtype) and ym.is_meta
     with pytest.raises(ValueError, match="device"):
-        ops.ssd_scan(*(a.to("meta") for a in args), chunk=16)
+        ops.ssd_scan(*map(OtherDevice, args), chunk=16)
 
 
 
