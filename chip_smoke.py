@@ -32,6 +32,23 @@ Phases (one JSON line each):
    danube, jamba and kimi servers on 20-token prompts (past the reduced
    window of 16), and paligemma and whisper through prefill and 8
    decode steps;
+2a. ``decode_cut``: the decode kernel's partial mode over one full-width
+   bfloat16 cache cut into 2, 4 and 8 blocks, as a mesh whose "model"
+   axis cuts the KV sequence gives each rank one (``DECODE_CUT``:
+   gemma3-27b's global layer, B 4, S 32,768, K 16, G 2, hd 128; its
+   windowed layer, window 1,024; jamba-v0.1-52b's, B 4, S 8,192, K 8, G
+   4): each block's partial through ``ops.partial`` (one launch a block,
+   counted from 0), each block's float32 (o, m, l) held against the
+   plain partial on the same block within 2e-5 (a block with no valid
+   position reporting m = -2**30 and l its length exactly), then
+   ``merge_partials``, the function the collective route calls after its
+   all-gather, held against the whole-cache kernel and the plain version
+   within 2e-3 plus one bfloat16 step of the value; then graph ms of the
+   partial call on one of 4 blocks (fully valid) and of the merge,
+   beside the whole-cache kernel, SDPA over the whole cache's valid
+   range, the library's block attention with its logsumexp on the same
+   block (``library_ms``) and the bound (the block's bytes over 3.35
+   TB/s);
 3. the fleet main path: ``run_fleet_scenario`` on ``FLEET_10K`` (10,000
    leaves, 1,000 tenants, 21 epochs, the engine-sampled retention
    denominator: 12 single-tenant alone runs after the drive), with
@@ -48,7 +65,11 @@ Phases (one JSON line each):
    and resume, a facade's 40-event trace and three ``step_arrays``): one
    validation per publish or step, none raising; then every break case
    of ``tests/torch_schema_cases.py`` on a card copy of its clean state,
-   each raising its error with the CPU's message;
+   each raising its error with the CPU's message; then two epochs of the
+   256-leaf fleet on the card through ``schema.trace_epoch``
+   (``trace_effects`` for ``EpochRunner.epoch``, and for
+   ``BatchEngine.step`` inside it): the observed write-sets, printed,
+   within the declared ones;
 3b. ``fig06_scale``: the fcfs / fcfsp / spot fleet baselines
    (``run_fleet_baseline``) at n=10,000 on phase 3's cached denominator,
    then the n=2,048 case (laissez with the analytic denominator and the
@@ -170,7 +191,10 @@ Phases (one JSON line each):
    over the rate for their type, whichever is larger; the SSD scan's at
    the bf16 tensor-core rate, with the figure at the float32 rate of the
    CUDA cores beside it as ``bound_ms_fp32_cores``), and
-   decode_attention's split plan; for moe_route also the logits product
+   decode_attention's split plan and, under ``partial``, phase 2a's
+   partial mode (its launches, error, graph ms, bound, plain ms; the
+   merge's, the whole-cache kernel's and SDPA's ms beside); for
+   moe_route also the logits product
    and, after it, the router sequence and the library's
    (``_route_timings``).  Times are CUDA events over calls captured in a
    CUDA graph (device time; the eager times, host enqueue included,
@@ -281,6 +305,25 @@ DECODE_SHAPES = (
     ("whisper_self", 2, 24, 8, 1, 64, ((23, 0),)),
     ("whisper_cross", 2, 1500, 8, 1, 64, ((1499, 0),)),
 )
+
+# the decode kernel's partial mode over one full-width bfloat16 cache cut
+# into R blocks (``DECODE_CUT_RANKS``), as the ranks of a mesh whose
+# "model" axis cuts the KV sequence hold it: (path, B, S, K, G, hd,
+# [(pos, window), ...]); the positions leave blocks fully valid, partly
+# valid and fully masked, and one case no valid position at all
+DECODE_CUT = (
+    ("gemma3_global", 4, 32768, 16, 2, 128, ((20000, 0), (-1, 0))),
+    ("gemma3_local", 4, 32768, 16, 2, 128, ((9000, 1024),)),
+    ("jamba", 4, 8192, 8, 4, 128, ((1030, 0), (4106, 0))),
+)
+DECODE_CUT_RANKS = (2, 4, 8)
+# each block's float32 (o, m, l) against the plain partial: the same
+# float32 sums in another order; the merged bfloat16 output against the
+# whole-cache kernel and the plain version: 2e-3 plus one bfloat16 step
+# (2**-7) of the value, one rounding of float32 sums that differ in the
+# last bits (measured at most 1.2e-4 on an H100)
+PARTIAL_TOL = 2e-5
+BF16_MERGE_TOL, BF16_STEP = 2e-3, 2.0 ** -7
 
 _LINES = []
 
@@ -861,6 +904,161 @@ def phase_decode_shapes_vs_plain(dev):
             del q, k, v
 
 
+def phase_decode_cut(dev):
+    """The partial mode on the ``DECODE_CUT`` caches cut into
+    ``DECODE_CUT_RANKS`` blocks, merged and held against the whole-cache
+    kernel and the plain version; then the timings at 4 blocks of
+    gemma3's global layer.  Returns the ``partial`` entry of the
+    ``kernels`` line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ops as DO
+    from repro_torch.kernels.decode_attention import ref as DR
+    tol, launches, worst = BF16_MERGE_TOL, 0, 0.0
+    timed = None
+    for path, B, S, K, G, hd, cases in DECODE_CUT:
+        dt = torch.bfloat16
+        q = _randn((B, K, G, hd), 31, dev, dt)
+        k = _randn((B, S, K, hd), 32, dev, dt)
+        v = _randn((B, S, K, hd), 33, dev, dt)
+        for pos, window in cases:
+            whole = DK.decode_attention_cuda(q, k, v, pos, window)
+            plain = DR.decode_attention_ref(q, k, v, pos, window)
+            for R in DECODE_CUT_RANKS:
+                n = S // R
+                blocks = [(k[:, r * n:(r + 1) * n].contiguous(),
+                           v[:, r * n:(r + 1) * n].contiguous())
+                          for r in range(R)]
+                DK.LAUNCHES = 0
+                parts = [DO.partial(q, kb, vb, pos, window, r * n)
+                         for r, (kb, vb) in enumerate(blocks)]
+                got = DR.merge_partials(*(torch.stack(x) for x in
+                                          zip(*parts)), dtype=dt)
+                torch.cuda.synchronize()
+                n_launch = DK.LAUNCHES
+                launches += n_launch
+                t = torch.arange(S, device=dev)
+                valid = (t <= pos) & ((t > pos - window) if window else True)
+                kinds, masked_ok, block_ok = [], True, True
+                block_err = dict.fromkeys("oml", 0.0)
+                for r, ((kb, vb), part) in enumerate(zip(blocks, parts)):
+                    vr = valid[r * n:(r + 1) * n]
+                    kind = ("full" if bool(vr.all()) else "part"
+                            if bool(vr.any()) else "none")
+                    kinds.append(kind)
+                    if kind == "none":
+                        masked_ok &= bool((part[1] == DR.NEG_INF).all()) \
+                            and bool((part[2] == n).all())
+                    # each block's (o, m, l) against the plain partial
+                    for x, g, w in zip("oml", part,
+                                       DR.decode_attention_partial_ref(
+                                           q, kb, vb, pos, window, r * n)):
+                        block_err[x] = max(block_err[x], float(
+                            (g - w).abs().max()))
+                        block_ok &= bool(torch.allclose(
+                            g, w, rtol=PARTIAL_TOL, atol=PARTIAL_TOL))
+                errs = [float((got.float() - w.float()).abs().max())
+                        for w in (whole, plain)]
+                ok = masked_ok and block_ok and n_launch == R and all(
+                    bool(torch.allclose(got.float(), w.float(),
+                                        rtol=BF16_STEP, atol=tol))
+                    for w in (whole, plain))
+                worst = max(worst, errs[1])
+                emit({"phase": "decode_cut", "case": f"{path}_pos{pos}"
+                      f"_win{window}_R{R}", "shape": [B, S, K, G, hd],
+                      "blocks": kinds, "launches": n_launch,
+                      "max_abs_err_blocks": block_err,
+                      "tolerance_blocks": {"rtol": PARTIAL_TOL,
+                                           "atol": PARTIAL_TOL},
+                      "max_abs_err_vs_kernel": errs[0],
+                      "max_abs_err_vs_plain": errs[1],
+                      "max_abs_out": float(plain.float().abs().max()),
+                      "tolerance": {"atol": tol, "rtol": BF16_STEP},
+                      "ok": ok})
+                if not ok:
+                    fail(f"decode_cut {path} pos {pos} window {window} R {R}"
+                         f": errors {errs}, block errors {block_err}, "
+                         f"launches {n_launch}, blocks {kinds}, masked "
+                         f"blocks reported right {masked_ok}")
+                if path == "gemma3_global" and pos == 20000 and R == 4:
+                    timed = (q, k, v, blocks[0], [torch.stack(x) for x in
+                                                  zip(*parts)], pos)
+                del blocks, parts
+        del q, k, v
+    q, k, v, (kb, vb), (o4, m4, l4), pos = timed
+    B, S, K, hd = k.shape
+    G, n = q.shape[2], kb.shape[1]
+    lo, hi, _ = DK.valid_range(S, pos, 0)
+
+    def sdpa(i):
+        return F.scaled_dot_product_attention(
+            q.reshape(B, K * G, 1, hd), k[:, lo:hi + 1].transpose(1, 2),
+            v[:, lo:hi + 1].transpose(1, 2), enable_gqa=True)
+    nbytes = 2 * (B * K * G * hd + 2 * B * n * K * hd) \
+        + 4 * (B * K * G * hd + 2 * B * K * G)
+    ops = 4 * B * K * G * n * hd
+    bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
+    entry = {"name": "decode_attention (partial mode)", "route": "cuda",
+             "source": "src/repro_torch/csrc/decode_attention.cu",
+             "replaces": "src/repro/kernels/decode_attention/kernel.py:78",
+             "launches": launches, "max_abs_err": worst,
+             "ms": _graph_ms(lambda i: DK.decode_attention_partial_cuda(
+                 q, kb, vb, pos, 0, 0), 160),
+             "ms_eager": _time_ms(lambda i: DK.decode_attention_partial_cuda(
+                 q, kb, vb, pos, 0, 0), 160),
+             "plain_ms": _graph_ms(lambda i: DR.decode_attention_partial_ref(
+                 q, kb, vb, pos, 0, 0), 32),
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             **_block_library(q, kb, vb, o4[0], m4[0], l4[0]),
+             "merge_ms": _graph_ms(lambda i: DR.merge_partials(
+                 o4, m4, l4, dtype=q.dtype), 160),
+             "whole_ms": _graph_ms(lambda i: DK.decode_attention_cuda(
+                 q, k, v, pos, 0), 160),
+             "sdpa_whole_ms": _graph_ms(sdpa, 160),
+             "bound_ms_whole": _bound(
+                 2 * (2 * B * K * G * hd + 2 * B * (hi - lo + 1) * K * hd),
+                 4 * B * K * G * (hi - lo + 1) * hd, BF16_OPS_PER_S)[0],
+             "timed_shape": {"B": B, "S": S, "K": K, "G": G, "hd": hd,
+                             "blocks": 4, "block": n, "pos": pos,
+                             "block_offset": 0, "dtype": "bfloat16"},
+             "bytes": nbytes, "operations": ops}
+    emit({"phase": "decode_cut_times", **{k_: v_ for k_, v_ in entry.items()
+                                          if k_ not in ("name", "source")}})
+    return entry
+
+
+def _block_library(q, kb, vb, o, m, l):
+    """``library_ms`` for the partial mode: one PyTorch call that gives a
+    fully valid block's normalised output and its logsumexp (``m +
+    log l``, all ``merge_partials`` needs), the G query rows of a kv head
+    as its query length; flash attention, else the memory-efficient
+    one.  Its differences from the kernel's (o, m, l) on the same block
+    are recorded beside it."""
+    import torch
+    qh, kh, vh = q, kb.transpose(1, 2), vb.transpose(1, 2)
+    calls = (("aten._scaled_dot_product_flash_attention",
+              lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                  qh, kh, vh, 0.0, False, False)[:2]),
+             ("aten._scaled_dot_product_efficient_attention",
+              lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+                  qh, kh, vh, None, True)[:2]))
+    errors = []
+    for name, call in calls:
+        try:
+            out, lse = call()
+            ms = _graph_ms(lambda i: call(), 160)
+        except RuntimeError as e:                 # no such kernel here
+            errors.append(f"{name}: {str(e)[:200]}")
+            continue
+        lse = lse[..., :q.shape[2]].float()
+        return {"library_ms": ms, "library": name,
+                "library_max_abs_err": {
+                    "o": float((out.float() - o).abs().max()),
+                    "lse": float((lse - (m + torch.log(l))).abs().max())}}
+    return {"library_ms": None, "library": "; ".join(errors)}
+
+
 # ------------------------------------------------------------------ phase 3
 def _fleet_run(dev, run):
     """``run()`` with every launch count set to 0 just before and read
@@ -1086,6 +1284,34 @@ def _break_cases(dev, schema):
     return len(C.CASES), caught, bad
 
 
+def _traced_epochs(dev, schema):
+    """Two epochs of the 256-leaf fleet on the card through
+    ``schema.trace_epoch``: the keys each traced function wrote
+    (``trace_effects`` raises on an undeclared one)."""
+    import torch
+    from repro_torch.sim.epoch import EpochRunner
+    from repro_torch.sim.simulator import FleetScenarioConfig, \
+        _seed_floors, make_fleet
+    cfg = FleetScenarioConfig(**SMALL_FLEET)
+    topo, _, market, fleet, params = make_fleet(cfg, dev)
+    _seed_floors(market, topo)
+    runner = EpochRunner(market, fleet, "H100")
+    est = dict(market.states["H100"])
+    est["floor"], est["floor_t"] = tuple(est["floor"]), tuple(est["floor_t"])
+    stats = {k: torch.zeros((), dtype=torch.int32, device=dev)
+             for k in schema.STAT_KEYS}
+    fst, record = fleet.init_state(params), []
+    for t in (0.0, cfg.tick_s):
+        est, fst, stats = schema.trace_epoch(runner, params, est, fst, stats,
+                                             t, where=f"H100 epoch t={t}",
+                                             record=record)
+    torch.cuda.synchronize()
+    seen = {}
+    for qualname, keys in record:
+        seen.setdefault(qualname, set()).update(keys)
+    return {q: sorted(k) for q, k in seen.items()}, len(record)
+
+
 def phase_state_checker(dev, card, fleet_res):
     """The port's state checker on the card: ``validate_state`` on the
     final 10k fleet state of phase 3 (ms, median of
@@ -1118,6 +1344,11 @@ def phase_state_checker(dev, card, fleet_res):
         shutil.rmtree(root, ignore_errors=True)
     t1 = time.perf_counter()
     total, caught, bad = _break_cases(dev, schema)
+    t2 = time.perf_counter()
+    try:
+        effects, traced = _traced_epochs(dev, schema)
+    except AssertionError as err:
+        fail(f"trace_effects on the card: {err}")
     emit({"phase": "state_checker", "card": card,
           "n_leaves": FLEET_10K["n_leaves"],
           "capacity": eng.capacity, "n_tenants": eng.n_tenants,
@@ -1127,7 +1358,12 @@ def phase_state_checker(dev, card, fleet_res):
           "hook_sites": sites, "hook_validations": validated,
           "hooked_paths_s": t1 - t0, "break_cases": total,
           "caught": len(caught), "not_caught": bad,
-          "break_cases_s": time.perf_counter() - t1})
+          "break_cases_s": t2 - t1, "traced_calls": traced,
+          "observed_writes": effects,
+          "trace_effects_s": time.perf_counter() - t2})
+    for qualname, keys in effects.items():
+        if not set(keys) <= set(schema.EFFECTS[qualname]["writes"]):
+            fail(f"{qualname} wrote undeclared keys on the card")
     if validated != sum(sites.values()) or not all(sites.values()):
         fail(f"LAISSEZ_VALIDATE=1 validated {validated} states at sites "
              f"{sites}: one per publish or step expected")
@@ -2947,6 +3183,8 @@ def main() -> None:
     ssd_measured = timed("ssd_vs_plain", phase_ssd_vs_plain, dev)
     timed("small_slice", phase_small_slice, dev)
     timed("decode_shapes_vs_plain", phase_decode_shapes_vs_plain, dev)
+    decode_cut = timed("decode_cut", phase_decode_cut, dev)
+    _release()
     timed("reduced_olmoe", phase_reduced_server, dev, SERVE_ARCH, 8)
     # a whole chunk and a part
     timed("reduced_mamba2", phase_reduced_server, dev, SSM_ARCH, 20)
@@ -2965,6 +3203,7 @@ def main() -> None:
     timed("event_path", phase_event_path, dev, storm[0])
     rep, launches = timed("serve_olmoe", phase_serve, dev, SERVE_ARCH)
     decode = _decode_attention_entry(rep, launches)
+    decode["partial"] = decode_cut
     kernels += [decode, _moe_route_entry(rep, launches, dev)]
     del rep                    # free OLMoE before the next path's peak
     _release()

@@ -46,6 +46,18 @@
 //
 // Each K/V row loaded serves all G query rows of its group (up to 8 at
 // once; a larger G walks the rows in groups of 8 and re-reads the cache).
+//
+// Partial mode (decode_attention_partial_launch): the same kernel over one
+// block of a cache whose sequence is cut over several ranks.  Where block
+// 0 of the cluster (or the only block) would write the normalised output
+// in q's type, it writes three float32 results instead, for the caller's
+// cross-rank merge: o = acc / l, m the row max of the scaled scores (in
+// base e) and l the sum of exp(score - m).  A block that holds no valid
+// position runs the uniform case (every score 0 over all S positions),
+// which gives l = S and o the mean of the values, and reports m = -2^30,
+// the reference's mask value: every one of its scores is masked, so it
+// weighs nothing beside a block that holds a valid position.  Rounding
+// to q's type happens once, after the merge.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,6 +75,8 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegInf = -1073741824.f;   // -2^30, the reference's mask
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -116,7 +130,28 @@ template <typename T> struct Vec<T, 1> {
   static __device__ __forceinline__ void widen(raw x, float* f) { f[0] = x; }
 };
 
+// The result of query row (bk, g): the normalised output in q's type, or
+// in partial mode o = a / lsum (float32), and for e == 0 the row's m (base
+// e; -2^30 for a block with no valid position) and l.
+template <typename T>
+__device__ __forceinline__ void put_row(T* out, float* po, float* pm,
+                                        float* pl, size_t row, int hd, int e,
+                                        float mx, float lsum, float a,
+                                        int partial, int uniform) {
+  const float o = a / fmaxf(lsum, 1e-30f);
+  if (!partial) {
+    out[row * hd + e] = from_f32<T>(o);
+    return;
+  }
+  po[row * hd + e] = o;
+  if (e == 0) {
+    pm[row] = uniform ? kNegInf : mx * kLn2;
+    pl[row] = lsum;
+  }
+}
+
 // q (B, K, G, hd); k, v (B, S, K, hd); out (B, K, G, hd); all contiguous.
+// Partial mode: out unused; po (B, K, G, hd), pm and pl (B, K, G) float32.
 // Grid (splits, K, B), one cluster of `splits` blocks per (b, kh); block
 // sp covers positions [lo + sp*split_len, min(hi + 1, lo + (sp + 1)*
 // split_len)).  Lane (r, c) = (lane / LPR, lane % LPR) holds vectors
@@ -126,9 +161,11 @@ template <typename T> struct Vec<T, 1> {
 template <typename T, int VEC, int LPR, int DV, int GB>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ out, int S,
-                    int K, int G, int hd, int lo, int hi, int split_len,
-                    int splits, int uniform, float qscale) {
+                    const T* __restrict__ v, T* __restrict__ out,
+                    float* __restrict__ po, float* __restrict__ pm,
+                    float* __restrict__ pl, int S, int K, int G, int hd,
+                    int lo, int hi, int split_len, int splits, int uniform,
+                    int partial, float qscale) {
   using V = Vec<T, VEC>;
   constexpr int RPW = 32 / LPR;              // rows a warp load covers
   constexpr int E = VEC * DV;                // elements a lane holds
@@ -287,8 +324,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         a = fmaf(pw[2 + e], cw, a);
       }
       if (splits == 1) {
-        out[((size_t)bk * G + g0 + gi) * hd + e] =
-            from_f32<T>(a / fmaxf(lsum, 1e-30f));
+        put_row(out, po, pm, pl, (size_t)bk * G + g0 + gi, hd, e, mx, lsum,
+                a, partial, uniform);
       } else {
         if (e == 0) {
           blk[gi * rs] = mx;                  // finite: no split is empty
@@ -315,8 +352,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
             lsum = fmaf(ps[1], cs, lsum);
             a = fmaf(ps[2 + e], cs, a);
           }
-          out[((size_t)bk * G + g0 + gi) * hd + e] =
-              from_f32<T>(a / fmaxf(lsum, 1e-30f));
+          put_row(out, po, pm, pl, (size_t)bk * G + g0 + gi, hd, e, mx,
+                  lsum, a, partial, uniform);
         }
       }
       cluster.sync();                         // block 0 is done reading
@@ -329,7 +366,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 struct Args {
   const void *q, *k, *v;
   void* out;
-  int B, S, K, G, hd, lo, hi, split_len, splits, uniform;
+  float *po, *pm, *pl;
+  int B, S, K, G, hd, lo, hi, split_len, splits, uniform, partial;
   float qscale;
   cudaStream_t st;
 };
@@ -350,8 +388,9 @@ int launch(const Args& a) {
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, decode_split_kernel<T, VEC, LPR, DV, GB>, (const T*)a.q,
-      (const T*)a.k, (const T*)a.v, (T*)a.out, a.S, a.K, a.G, a.hd, a.lo, a.hi,
-      a.split_len, a.splits, a.uniform, a.qscale);
+      (const T*)a.k, (const T*)a.v, (T*)a.out, a.po, a.pm, a.pl, a.S, a.K,
+      a.G, a.hd, a.lo, a.hi, a.split_len, a.splits, a.uniform, a.partial,
+      a.qscale);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -385,6 +424,27 @@ int launch_t(const Args& a, bool vec_ok) {
 extern "C" int decode_attention_hdmax() { return HDMAX; }
 extern "C" int decode_attention_max_splits() { return MAX_SPLITS; }
 
+namespace {
+
+int launch_checked(const Args& a, int dtype) {
+  if (a.hd < 1 || a.hd > HDMAX || a.B < 0 || a.K < 1 || a.G < 1 || a.S < 1 ||
+      a.lo < 0 || a.hi >= a.S || a.lo > a.hi || a.split_len < 1 ||
+      a.splits < 1 || a.splits > MAX_SPLITS ||
+      (long long)a.splits * a.split_len < a.hi - a.lo + 1 ||
+      (long long)(a.splits - 1) * a.split_len >= a.hi - a.lo + 1 ||
+      a.K > 65535 || a.B > 65535 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (a.B == 0) return 0;
+  const int esize = dtype == 0 ? 4 : 2;
+  const uintptr_t ptrs = (uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v |
+                         (a.partial ? (uintptr_t)a.po : (uintptr_t)a.out);
+  const bool vec_ok = (a.hd * esize) % 16 == 0 && ptrs % 16 == 0;
+  return dtype == 0 ? launch_t<float>(a, vec_ok)
+                    : launch_t<__nv_bfloat16>(a, vec_ok);
+}
+
+}  // namespace
+
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike).  lo..hi are
 // the valid cache positions, computed by the caller from pos and the
 // window, cut into `splits` (at most MAX_SPLITS, the portable cluster
@@ -396,19 +456,21 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
                                        int lo, int hi, int uniform,
                                        int split_len, int splits, float scale,
                                        void* stream) {
-  if (hd < 1 || hd > HDMAX || B < 0 || K < 1 || G < 1 || S < 1 || lo < 0 ||
-      hi >= S || lo > hi || split_len < 1 || splits < 1 ||
-      splits > MAX_SPLITS || (long long)splits * split_len < hi - lo + 1 ||
-      (long long)(splits - 1) * split_len >= hi - lo + 1 ||
-      K > 65535 || B > 65535 || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  const Args a{q, k, v, out, B, S, K, G, hd, lo, hi, split_len, splits,
-               uniform, scale * kLog2e, (cudaStream_t)stream};
-  const int esize = dtype == 0 ? 4 : 2;
-  const bool vec_ok =
-      (hd * esize) % 16 == 0 &&
-      (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16) == 0;
-  return dtype == 0 ? launch_t<float>(a, vec_ok)
-                    : launch_t<__nv_bfloat16>(a, vec_ok);
+  const Args a{q, k, v, out, nullptr, nullptr, nullptr, B, S, K, G, hd, lo,
+               hi, split_len, splits, uniform, 0, scale * kLog2e,
+               (cudaStream_t)stream};
+  return launch_checked(a, dtype);
+}
+
+// Partial mode over one block of a cut cache: q, k, v as above (k, v the
+// block, S its length); lo..hi the block's valid positions in its own
+// numbering, or with `uniform` set (no valid position) 0..S-1; o (B, K,
+// G, hd), m and l (B, K, G) float32, written in place of `out`.
+extern "C" int decode_attention_partial_launch(
+    const void* q, const void* k, const void* v, float* o, float* m,
+    float* l, int dtype, int B, int S, int K, int G, int hd, int lo, int hi,
+    int uniform, int split_len, int splits, float scale, void* stream) {
+  const Args a{q, k, v, nullptr, o, m, l, B, S, K, G, hd, lo, hi, split_len,
+               splits, uniform, 1, scale * kLog2e, (cudaStream_t)stream};
+  return launch_checked(a, dtype);
 }

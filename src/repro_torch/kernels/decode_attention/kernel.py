@@ -10,6 +10,12 @@ kv-head) that merges them in shared memory), allocates the output with
 ``torch.empty``, launches on the current stream without synchronising,
 raises if the launch was refused, and counts the launch in
 ``LAUNCHES``.  It never falls back to the plain version.
+
+``decode_attention_partial_cuda`` is the same kernel over one block of a
+cache whose sequence is cut over several ranks (block position ``t`` is
+global position ``offset + t``): one launch, counted in ``LAUNCHES``,
+that writes the block's float32 ``(o, m, l)`` for the cross-rank merge
+(``ref.merge_partials``) in place of the normalised output.
 """
 from __future__ import annotations
 
@@ -37,6 +43,10 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        part = lib.decode_attention_partial_launch
+        part.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
+                         + [ctypes.c_float, ctypes.c_void_p])
+        part.restype = ctypes.c_int
         for limit in (lib.decode_attention_hdmax,
                       lib.decode_attention_max_splits):
             limit.argtypes, limit.restype = [], ctypes.c_int
@@ -50,7 +60,10 @@ def _lib() -> ctypes.CDLL:
 def valid_range(S: int, pos: int, window: int):
     """``(lo, hi, uniform)``: the cache positions the mask keeps are
     ``lo..hi``; with none kept, the reference's softmax is uniform over
-    all S positions, which the kernel gives with every score 0."""
+    all S positions, which the kernel gives with every score 0 (in
+    partial mode, for one block of a cut cache with ``pos`` taken
+    relative to the block, it then reports m = -2**30: the block weighs
+    nothing beside one that holds a valid position)."""
     hi = min(pos, S - 1)
     lo = max(0, pos - window + 1) if window else 0
     if lo > hi:
@@ -77,16 +90,14 @@ def _sm_count(dev: torch.device) -> int:
     return _SMS[idx]
 
 
-def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor, pos: int,
-                          window: int = 0) -> torch.Tensor:
-    """One launch: q (B, K, G, hd), k/v (B, S, K, hd) on CUDA, all
-    float32 or all bfloat16 -> (B, K, G, hd) in q's dtype."""
-    global LAUNCHES
+def _checked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             fn: str):
+    """(B, S, K, G, hd) of q (B, K, G, hd) and k/v (B, S, K, hd), after
+    the checks every launch needs: one CUDA device, one dtype the kernel
+    takes, the shapes, the limits and contiguity."""
     dev = q.device
     if dev.type != "cuda":
-        raise ValueError(f"decode_attention_cuda needs CUDA tensors, got "
-                         f"{dev}")
+        raise ValueError(f"{fn} needs CUDA tensors, got {dev}")
     for name, x in (("k", k), ("v", v)):
         if x.device != dev:
             raise ValueError(f"{name} on {x.device}, q on {dev}")
@@ -113,6 +124,17 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+    return B, S, K, G, hd
+
+
+def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, pos: int,
+                          window: int = 0) -> torch.Tensor:
+    """One launch: q (B, K, G, hd), k/v (B, S, K, hd) on CUDA, all
+    float32 or all bfloat16 -> (B, K, G, hd) in q's dtype."""
+    global LAUNCHES
+    B, S, K, G, hd = _checked(q, k, v, "decode_attention_cuda")
+    dev = q.device
     lo, hi, uniform = valid_range(S, int(pos), int(window))
     splits, split_len = split_plan(hi - lo + 1, B * K, _sm_count(dev))
     out = torch.empty_like(q)
@@ -128,3 +150,33 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                            f"{err}")
     LAUNCHES += 1
     return out
+
+
+def decode_attention_partial_cuda(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, pos: int, window: int = 0,
+                                  offset: int = 0):
+    """One launch over one block of a cut cache: q (B, K, G, hd), k/v
+    (B, S_block, K, hd) on CUDA, all float32 or all bfloat16, the block's
+    position ``t`` the global position ``offset + t`` -> float32 ``(o
+    (B, K, G, hd), m (B, K, G), l (B, K, G))``, what
+    ``ref.decode_attention_partial_ref`` computes.  ``pos - offset`` may
+    be negative or past the block's end: the block then holds no valid
+    position and reports ``m = -2**30``."""
+    global LAUNCHES
+    B, S, K, G, hd = _checked(q, k, v, "decode_attention_partial_cuda")
+    dev = q.device
+    lo, hi, uniform = valid_range(S, int(pos) - int(offset), int(window))
+    splits, split_len = split_plan(hi - lo + 1, B * K, _sm_count(dev))
+    o = torch.empty((B, K, G, hd), dtype=torch.float32, device=dev)
+    m = torch.empty((B, K, G), dtype=torch.float32, device=dev)
+    l = torch.empty_like(m)
+    err = _lib().decode_attention_partial_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        m.data_ptr(), l.data_ptr(), _DTYPES[q.dtype], B, S, K, G, hd, lo,
+        hi, int(uniform), split_len, splits, float(np.float32(hd ** -0.5)),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention partial launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES += 1
+    return o, m, l

@@ -165,7 +165,8 @@ def spawn_local(fn: Callable, n: int, *args, timeout: float = 120.0,
     group (a ``FileStore`` in a fresh temporary directory): gloo, or
     ``"cpu:gloo,cuda:nccl"`` for ranks that work on their own cards.
     ``fn`` must be importable from a module that a spawned child can
-    import (the port package, not a test module).  Raises if a rank
+    import (the port package, or a helper beside the tests that imports
+    no JAX; not a test module).  Raises if a rank
     raises, or kills every rank and raises ``TimeoutError`` after
     ``timeout`` seconds."""
     with tempfile.TemporaryDirectory() as tmp:

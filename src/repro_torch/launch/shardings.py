@@ -34,6 +34,8 @@ from typing import Any, Dict, Iterable
 import torch
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch import mesh as mesh_lib
@@ -241,22 +243,35 @@ def to_placements(spec: P, mesh) -> tuple:
     return tuple(out)
 
 
-def distribute(tree: Any, specs: Any, mesh) -> Any:
+def distribute(tree: Any, specs: Any, mesh, fill=None,
+               path: tuple = ()) -> Any:
     """Every leaf of ``tree`` as a DTensor on ``mesh`` under the
     placement at the same place in ``specs`` (dicts and lists walked
     together).  Each rank cuts its own block out of the full tensor it
     holds, with no communication; a ``meta`` leaf gives a ``meta``
-    DTensor whose local block has the rank's shape and no storage.  A
-    leaf that is a DTensor already is redistributed."""
+    DTensor whose local block has the rank's shape and no storage, or,
+    with ``fill``, the block ``fill(path, shape, offset)`` makes: the
+    leaf's path (the dict keys and list indices down to it), the rank's
+    block shape and its global offset.  A leaf that is a DTensor already
+    is redistributed."""
     if isinstance(specs, P):
         place = to_placements(specs, mesh)
         if isinstance(tree, DTensor):
             return tree.redistribute(mesh, place)
+        if fill is not None and tree.is_meta:
+            shape, offset = compute_local_shape_and_global_offset(
+                tree.shape, mesh, place)
+            return DTensor.from_local(
+                fill(path, tuple(shape), tuple(offset)).contiguous(), mesh,
+                place, run_check=False, shape=tree.shape,
+                stride=tree.stride())
         return distribute_tensor(tree.detach(), mesh, place,
                                  src_data_rank=None)
     if isinstance(specs, dict):
-        return {k: distribute(tree[k], specs[k], mesh) for k in tree}
-    return type(tree)(distribute(t, s, mesh) for t, s in zip(tree, specs))
+        return {k: distribute(tree[k], specs[k], mesh, fill, path + (k,))
+                for k in tree}
+    return type(tree)(distribute(t, s, mesh, fill, path + (i,))
+                      for i, (t, s) in enumerate(zip(tree, specs)))
 
 
 def full(tree: Any) -> Any:

@@ -157,6 +157,113 @@ FLEET_STATE_KEYS = ("progress", "served", "demanded", "rate_ewma",
                     "cold_until")
 
 
+# ---------------------------------------------------------------------
+# Declared per-function effects: which state keys each engine / fleet /
+# epoch entry point of the port may READ and WRITE, the reference's
+# sets key for key under the port's qualnames.  ``trace_effects`` below
+# checks observed writes against them at runtime.
+# ---------------------------------------------------------------------
+EFFECTS: Dict[str, Dict[str, tuple]] = {
+    "repro_torch.market_torch.engine.BatchEngine.step": {
+        "reads": ("acq_t", "bills", "blimit", "dropped", "floor",
+                  "floor_t", "head", "health", "level", "limit",
+                  "next_seq", "node", "order", "owner", "price", "rate",
+                  "resorts", "seg_start", "seq", "sorted_gseg", "t",
+                  "tenant", "waves"),
+        "writes": ("acq_t", "bills", "blimit", "dropped", "floor",
+                   "floor_t", "head", "level", "limit", "next_seq",
+                   "node", "order", "owner", "price", "rate", "resorts",
+                   "seg_start", "seq", "sorted_gseg", "t", "tenant",
+                   "waves"),
+    },
+    "repro_torch.market_torch.engine.BatchEngine.place": {
+        "reads": ("blimit", "dropped", "head", "level", "next_seq",
+                  "node", "order", "price", "resorts", "seg_start",
+                  "seq", "sorted_gseg", "tenant"),
+        "writes": ("blimit", "dropped", "head", "level", "next_seq",
+                   "node", "order", "price", "resorts", "seg_start",
+                   "seq", "sorted_gseg", "tenant"),
+    },
+    "repro_torch.market_torch.engine.BatchEngine.cancel": {
+        "reads": ("price", "tenant"),
+        "writes": ("price", "tenant"),
+    },
+    "repro_torch.market_torch.engine.BatchEngine.cancel_all": {
+        "reads": ("price", "seg_start", "tenant"),
+        "writes": ("order", "price", "seg_start", "sorted_gseg",
+                   "tenant"),
+    },
+    "repro_torch.market_torch.engine.BatchEngine.set_health": {
+        "reads": ("health",),
+        "writes": ("health",),
+    },
+    "repro_torch.market_torch.engine.BatchEngine._cascade": {
+        "reads": ("acq_t", "blimit", "floor", "health", "limit",
+                  "order", "owner", "price", "seg_start", "seq",
+                  "sorted_gseg", "tenant", "waves"),
+        "writes": ("acq_t", "limit", "owner", "price", "rate", "tenant",
+                   "waves"),
+    },
+    "repro_torch.market_torch.bridge.BatchMarket.set_retention_limit": {
+        "reads": ("acq_t", "bills", "blimit", "dropped", "floor",
+                  "floor_t", "head", "health", "level", "limit",
+                  "next_seq", "node", "order", "owner", "price", "rate",
+                  "resorts", "seg_start", "seq", "sorted_gseg", "t",
+                  "tenant", "waves"),
+        "writes": ("acq_t", "bills", "blimit", "dropped", "floor",
+                   "floor_t", "head", "level", "limit", "next_seq",
+                   "node", "order", "owner", "price", "rate", "resorts",
+                   "seg_start", "seq", "sorted_gseg", "t", "tenant",
+                   "waves"),
+    },
+    "repro_torch.sim.epoch.EpochRunner.epoch": {
+        "reads": ("acq_t", "bids_clipped", "bills", "blimit",
+                  "cold_cnt", "cold_until", "demanded", "done_at",
+                  "dropped", "explicit_relinquish", "floor", "floor_t",
+                  "head", "health", "implicit_relinquish",
+                  "last_checkpoint", "last_scale_down", "last_t",
+                  "level", "limit", "next_seq", "node", "order",
+                  "orders", "owner", "price", "progress", "rate",
+                  "rate_ewma", "reconfig_until", "resorts",
+                  "revoked_by_fault", "seg_start", "seq", "served",
+                  "sorted_gseg", "t", "tenant", "transfers", "waves"),
+        "writes": ("acq_t", "bids_clipped", "bills", "blimit",
+                   "cold_cnt", "cold_until", "demanded", "done_at",
+                   "dropped", "explicit_relinquish", "floor", "floor_t",
+                   "head", "implicit_relinquish", "last_checkpoint",
+                   "last_scale_down", "last_t", "level", "limit",
+                   "next_seq", "node", "order", "orders", "owner",
+                   "price", "progress", "rate", "rate_ewma",
+                   "reconfig_until", "resorts", "revoked_by_fault",
+                   "seg_start", "seq", "served", "sorted_gseg", "t",
+                   "tenant", "transfers", "waves"),
+    },
+    "repro_torch.sim.fleet.Fleet.policy": {
+        "reads": ("done_at", "last_checkpoint", "last_scale_down",
+                  "last_t", "progress", "rate_ewma", "reconfig_until"),
+        "writes": ("last_scale_down",),
+    },
+    "repro_torch.sim.fleet.Fleet.after_step": {
+        "reads": ("cold_cnt", "cold_until", "done_at",
+                  "last_checkpoint", "progress", "reconfig_until"),
+        "writes": ("cold_cnt", "cold_until", "progress",
+                   "reconfig_until"),
+    },
+    "repro_torch.sim.fleet.Fleet.advance": {
+        "reads": ("cold_cnt", "cold_until", "demanded", "done_at",
+                  "last_checkpoint", "last_t", "progress", "rate_ewma",
+                  "reconfig_until", "served"),
+        "writes": ("cold_cnt", "demanded", "done_at", "last_checkpoint",
+                   "last_t", "progress", "rate_ewma", "served"),
+    },
+    "repro_torch.kernels.market_clear.ops.clear": {
+        "reads": ("floor", "health", "limit", "order", "owner",
+                  "price", "seg_start", "seq", "sorted_gseg", "tenant"),
+        "writes": (),
+    },
+}
+
+
 class StateInvariantError(ValueError):
     """A semantic invariant of the state contract failed.  ``str`` is
     the reference's ``checkify`` error text for the same check; the
@@ -413,3 +520,108 @@ def maybe_validate(state, engine, where: str = "state") -> None:
         global VALIDATED
         VALIDATED += 1
         validate_state(state, engine, where=where)
+
+
+def _flat_state_items(state):
+    """(name, value) pairs with the per-level lists flattened: ``floor``
+    becomes ``floor[0]``, ``floor[1]``, ... so buffers diff
+    positionally."""
+    for k, v in state.items():
+        if k in LEVEL_SCHEMA:
+            for d, arr in enumerate(v):
+                yield f"{k}[{d}]", arr
+        else:
+            yield k, v
+
+
+def _snapshot(state) -> Dict[str, torch.Tensor]:
+    """A copy of every buffer: the traced function may write a buffer in
+    place, and a CUDA tensor is only a handle."""
+    return {k: torch.as_tensor(v).clone() for k, v in
+            _flat_state_items(state)}
+
+
+def _written(before: Dict[str, torch.Tensor], state) -> set:
+    """The state keys whose buffers differ from ``before``: a new buffer
+    or a new shape on the host, the values in one stacked comparison on
+    the buffers' device and one host read."""
+    observed, pairs = set(), []
+    for k, v in _flat_state_items(state):
+        base = k.split("[", 1)[0]
+        old, new = before.get(k), torch.as_tensor(v)
+        if old is None or old.shape != new.shape:
+            observed.add(base)
+        else:
+            pairs.append((base, old, new))
+    if pairs:
+        dev = pairs[0][2].device
+        differ = torch.stack([(old.to(new.device) != new).any().to(dev)
+                              for _, old, new in pairs]).tolist()
+        observed.update(base for (base, _, _), d in zip(pairs, differ) if d)
+    return observed
+
+
+def trace_effects(fn, state, *args, qualname: str, engine=None,
+                  where: str = "call", record=None, **kwargs):
+    """Runtime twin of the reference's static effect checker: run
+    ``fn(state, *args, **kwargs)``, diff every state buffer before (a
+    copy) against after, and assert the observed write-set is within the
+    write-set declared for ``qualname`` in ``EFFECTS``, with the
+    reference's message.  Returns ``fn``'s result unchanged (a function
+    returning a tuple is diffed on element 0).  ``record``, a list,
+    gets ``(qualname, sorted observed keys)``.
+
+    When ``engine`` is given and the call touched the bid book or its
+    sorted view, the full ``validate_state`` pass runs on the result (a
+    live book write that skips view maintenance trips the sorted-view
+    checks there even though its write-set looks declared)."""
+    declared = set(EFFECTS[qualname]["writes"])
+    before = _snapshot(state)
+    out = fn(state, *args, **kwargs)
+    new_state = out if isinstance(out, dict) else out[0]
+    observed = _written(before, new_state)
+    if record is not None:
+        record.append((qualname, sorted(observed)))
+    undeclared = observed - declared
+    if undeclared:
+        raise AssertionError(
+            f"effect trace ({where}): {qualname} wrote undeclared "
+            f"state key(s) {sorted(undeclared)} — fix the function or "
+            "update schema.EFFECTS")
+    book_or_view = set(BOOK_COLUMNS) | {"order", "sorted_gseg",
+                                        "seg_start"}
+    if engine is not None and observed & book_or_view:
+        validate_state(new_state, engine,
+                       where=f"{where} (trace_effects)")
+    return out
+
+
+def trace_epoch(runner, params, eng_state, fleet_state, stats, t,
+                where: str = "epoch", record=None):
+    """``runner.epoch`` (an ``EpochRunner``) under ``trace_effects`` for
+    ``EpochRunner.epoch``, its engine, fleet and stats trees taken as one
+    state (their keys are disjoint), and the engine step inside it under
+    ``trace_effects`` for ``BatchEngine.step`` with the runner's engine.
+    Returns the epoch's ``(eng_state, fleet_state, stats)``."""
+    eng = runner.eng
+    names = (tuple(eng_state), tuple(fleet_state), tuple(stats))
+    step = eng.step
+
+    def traced_step(state, *args, **kwargs):
+        return trace_effects(
+            step, state, *args,
+            qualname="repro_torch.market_torch.engine.BatchEngine.step",
+            engine=eng, where=where, record=record, **kwargs)
+
+    def epoch(state):
+        parts = [{k: state[k] for k in ks} for ks in names]
+        e, f, s = runner.epoch(params, *parts, t)
+        return {**e, **f, **s}
+    eng.step = traced_step
+    try:
+        out = trace_effects(epoch, {**eng_state, **fleet_state, **stats},
+                            qualname="repro_torch.sim.epoch.EpochRunner.epoch",
+                            where=where, record=record)
+    finally:
+        del eng.step
+    return tuple({k: out[k] for k in ks} for ks in names)

@@ -27,7 +27,10 @@ DTensor's sharding propagation, and the rest on each rank's blocks
 block), the attention core (``_attend_blocks``) and the vocab-cut
 embedding (``embed_blocks``); ``pin_batch`` places the residual stream
 as the reference's sharding constraint does.  A decode step writes its
-new K/V into the block of the rank that holds ``pos`` (``_put``).
+new K/V into the block of the rank that holds ``pos`` (``_put``) before
+the attention core reads the cache; where the cache's sequence is cut,
+each rank's partial softmax of its block is merged across the ranks
+(``kernels/decode_attention/ops.py``).
 
 JAX promotes mixed float types at a product (``bf16 @ f32`` is an f32
 product); PyTorch raises instead, so the casts JAX applies silently are
@@ -193,6 +196,24 @@ def _put(cache: torch.Tensor, pos: int, new: torch.Tensor) -> None:
     at = pos - offset[1]
     if 0 <= at < shape[1]:
         cache.to_local()[:, at] = new.to(cache.dtype)
+
+
+def pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """(B, S, ...) -> (B, S + pad, ...), zeros after the last position (a
+    new tensor).  On a DTensor whose sequence dim is not cut each rank
+    pads its own block: DTensor's rule for ``F.pad`` cannot plan the
+    redistribution of a block cut over "model" in some releases
+    (torch 2.11)."""
+    widths = (0, 0) * (t.dim() - 2) + (0, pad)
+    if not isinstance(t, DTensor):
+        return F.pad(t, widths)
+    if any(isinstance(p, Shard) and p.dim == 1 for p in t.placements):
+        raise ValueError("pad_seq: the sequence dim is cut")
+    shape = (t.shape[0], t.shape[1] + pad) + tuple(t.shape[2:])
+    return DTensor.from_local(
+        F.pad(t.to_local(), widths), t.device_mesh, t.placements,
+        run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
 
 
 # --------------------------------------------------------------------------
@@ -402,7 +423,8 @@ def attention_decode(p: Dict[str, torch.Tensor], cfg: ArchConfig,
     B, _, D = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // K
-    # on DTensors the cache cuts the sequence, so q keeps every head
+    # on DTensors q keeps every head: the attention core places it as the
+    # cache without its sequence dim (each rank's kv heads whole)
     q = pin_batch(x @ p["wq"]).reshape(B, 1, K, G, hd)
     if cross_kv is not None:
         if cfg.qk_norm:

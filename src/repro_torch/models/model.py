@@ -1,5 +1,6 @@
 """Model assembly of the port, twin of ``repro.models.model``: parameter
-init (and its storage-free template), the unrolled forward (with the
+init (its storage-free template, and each rank's own blocks for a model
+too large for one card), the unrolled forward (with the
 vision prefix, the audio encoder and, for training, each superblock
 rematerialised), the loss, prefill, one decode step, and the cache
 layout.  Every MoE layer runs ``moe_fn`` (``layers.moe_dense`` by
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import functools
 import math
+import zlib
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -40,6 +42,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import DeviceLike, recip32, resolve_device
+from repro_torch.launch.shardings import distribute
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
@@ -294,6 +297,67 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     return params
 
 
+def init_blocks(cfg: ArchConfig, specs, mesh, seed: int = 0,
+                device: DeviceLike = None) -> Params:
+    """Random parameters as DTensors placed by ``specs`` (a
+    ``launch.shardings.param_specs`` tree) on ``mesh``, for a model whose
+    whole ``init_params`` does not fit one card: ``abstract_params``
+    placed by ``shardings.distribute``, whose ``fill`` makes each rank's
+    block of each leaf.  A random matrix's block is drawn from a
+    ``torch.Generator`` seeded by ``seed``, the leaf's path and the
+    block's global offset (so a block held by several ranks is the same
+    on each), with the init's distribution and scale; the small
+    deterministic leaves (norms, the SSM's ``A_log``, ``D``,
+    ``dt_bias``) are built whole from a per-layer seed and cut.  The
+    values depend on the mesh's cuts, not on the rank that draws them.
+    Collective-free."""
+    if cfg.enc_dec:
+        raise ValueError(f"{cfg.name}: init_blocks has no encoder")
+    dev = resolve_device(device)
+    dt = _dtype(cfg)
+    plan = cfg.layer_plan()
+    head, p, n_super, _ = cfg.plan_blocks()
+    emb = _Init(torch.Generator(dev).manual_seed(seed), dev)
+    top = {"embed": emb.dense((cfg.vocab_size, cfg.d_model), dt, 0.02),
+           "final_norm": emb.norm(cfg.d_model),
+           "lm_head": emb.dense((cfg.d_model, cfg.vocab_size), dt, 0.02)}
+
+    @functools.lru_cache(maxsize=None)
+    def layer(i):
+        """Layer ``i``'s tree, its random matrices not drawn."""
+        return _layer_params(cfg, plan[i], _Init(torch.Generator(
+            dev).manual_seed(seed * 100_003 + i), dev), dt)
+
+    def block(leaf, path, shape, offset):
+        """The block of ``leaf`` (a ``_Dense`` or a whole tensor) at
+        ``offset`` of shape ``shape``."""
+        if isinstance(leaf, _Dense):
+            gen = torch.Generator(dev).manual_seed(
+                zlib.crc32(f"{seed}/{path}/{offset}".encode()))
+            return torch.randn(shape, generator=gen, dtype=torch.float32,
+                               device=dev).mul_(leaf.scale).to(leaf.dtype)
+        return leaf[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+
+    def fill(path, shape, offset):
+        if path[0] in top:
+            return block(top[path[0]], path, shape, offset)
+        group, j, *keys = path
+
+        def leaf(i):
+            return functools.reduce(lambda t, k: t[k], keys, layer(i))
+        if group != "blocks":
+            i = j if group == "head" else head + n_super * p + j
+            return block(leaf(i), path, shape, offset)
+        # A stacked leaf: row ``s`` is layer ``head + s * p + j``.
+        rows = range(offset[0], offset[0] + shape[0])
+        out = torch.empty(shape, dtype=leaf(head + j).dtype, device=dev)
+        for r, s in enumerate(rows):
+            out[r] = block(leaf(head + s * p + j), path + (s,), shape[1:],
+                           offset[1:])
+        return out
+    return distribute(abstract_params(cfg), specs, mesh, fill=fill)
+
+
 def abstract_params(cfg: ArchConfig) -> Params:
     """``init_params``' tree with shapes and dtypes but no storage (every
     leaf on the ``meta`` device; nothing is drawn)."""
@@ -326,8 +390,7 @@ def _apply_layer(p, cfg: ArchConfig, spec: LayerSpec, x, positions, *,
                                   causal=causal, return_kv=True)
         if collect:
             pad = max(0, max_len - k.shape[1])
-            entry = {"k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)),
-                     "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))}
+            entry = {"k": L.pad_seq(k, pad), "v": L.pad_seq(v, pad)}
     else:
         out, (conv_tail, ssm_state) = L.ssd_block(p["ssm"], cfg, h)
         if collect:

@@ -1239,3 +1239,298 @@ def test_dtensor_decode_on_card_matches_plain():
     (plain, n_plain), (dt, n_dt) = runs
     torch.testing.assert_close(dt, plain, rtol=0, atol=1e-5)
     assert n_dt == n_plain == 2 * cfg.num_layers
+
+
+# ------------------------------------------- the decode kernel's partial mode
+# (B, S, K, G, hd, block, offset, pos, window): one block of a cut cache,
+# fully valid, partly valid (pos inside; a window cutting its start),
+# fully masked (pos before it; a window ending before it), and a block
+# that holds no valid position where another does; jamba's rank block
+# (B 4, 2,048 of 8,192, K 8, G 4) and gemma3's (K 16, G 2, window 1,024)
+PARTIAL_CASES = [
+    (2, 256, 2, 2, 64, 64, 64, 200, 0), (2, 256, 2, 2, 64, 64, 128, 150, 0),
+    (2, 256, 2, 2, 64, 64, 0, 150, 0), (2, 256, 2, 2, 64, 64, 192, 150, 0),
+    (1, 300, 2, 8, 80, 100, 100, 160, 40), (1, 300, 2, 8, 80, 100, 0, 160, 40),
+    (1, 37, 1, 3, 37, 20, 17, 36, 7),
+    (4, 8192, 8, 4, 128, 2048, 0, 1030, 0),
+    (4, 8192, 8, 4, 128, 2048, 2048, 1030, 0),
+    (4, 8192, 8, 4, 128, 2048, 4096, 4106, 0),
+    (4, 32768, 16, 2, 128, 8192, 8192, 9000, 1024),
+    (4, 32768, 16, 2, 128, 8192, 0, 9000, 1024)]
+
+
+def _partial_inputs(B, S, K, G, hd, dt, seed):
+    """Seeded q, k, v drawn on the card (a host draw of a 32,768-deep
+    cache takes seconds)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    return tuple(torch.randn(s, generator=gen, device="cuda").to(dt)
+                 for s in ((B, K, G, hd), (B, S, K, hd), (B, S, K, hd)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,K,G,hd,block,offset,pos,window",
+                         PARTIAL_CASES)
+def test_decode_partial_kernel_matches_plain_on_card(dtype, B, S, K, G, hd,
+                                                     block, offset, pos,
+                                                     window):
+    """The kernel's partial mode on one block of a cache (one launch)
+    against the plain partial on the same block: o, m and l within 2e-5
+    (float32 outputs in both dtypes: the same float32 sums in another
+    order, m through base 2); a block with no valid position reports m
+    = -2**30 and l its length exactly."""
+    _need_cuda()
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ref as DR
+    dt = getattr(torch, dtype)
+    q, k, v = _partial_inputs(B, S, K, G, hd, dt, S + offset + pos)
+    kb, vb = (x[:, offset:offset + block].contiguous() for x in (k, v))
+    before = DK.LAUNCHES
+    got = DK.decode_attention_partial_cuda(q, kb, vb, pos, window, offset)
+    want = DR.decode_attention_partial_ref(q, kb, vb, pos, window, offset)
+    torch.cuda.synchronize()
+    assert DK.LAUNCHES == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
+    t = np.arange(offset, offset + block)
+    if not ((t <= pos) & ((t > pos - window) if window else True)).any():
+        assert bool((got[1] == DR.NEG_INF).all())
+        assert bool((got[2] == block).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R_", [2, 4, 8])
+@pytest.mark.parametrize("pos,window", [(9000, 1024), (20000, 0), (-1, 0)])
+def test_decode_partials_merged_match_whole_cache_on_card(dtype, R_, pos,
+                                                          window):
+    """``merge_partials`` of R blocks' kernel partials (gemma3's cache, B
+    4, S 32,768, K 16, G 2) equals the whole-cache kernel and the plain
+    version within 2e-5 (float32) / 3e-2 (bfloat16), the decode kernel's
+    tolerances, with no valid position anywhere among the cases."""
+    _need_cuda()
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ref as DR
+    dt = getattr(torch, dtype)
+    q, k, v = _partial_inputs(4, 32768, 16, 2, 128, dt, R_ + pos + 1)
+    n = 32768 // R_
+    parts = [DK.decode_attention_partial_cuda(
+        q, k[:, r * n:(r + 1) * n].contiguous(),
+        v[:, r * n:(r + 1) * n].contiguous(), pos, window, r * n)
+        for r in range(R_)]
+    got = DR.merge_partials(*(torch.stack(x) for x in zip(*parts)),
+                            dtype=dt)
+    whole = DK.decode_attention_cuda(q, k, v, pos, window)
+    plain = DR.decode_attention_ref(q, k, v, pos, window)
+    torch.cuda.synchronize()
+    tol = 3e-2 if dt == torch.bfloat16 else 2e-5
+    for want in (whole, plain):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+# ---------------------------------------------------- sharded, across cards
+def _need_cards(n):
+    _need_cuda()
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices (one NCCL rank per card)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,shape", [("jamba-v0.1-52b", (1, 2)),
+                                        ("gemma3-27b", (1, 2)),
+                                        ("jamba-v0.1-52b", (2, 2))])
+def test_sharded_decode_across_cards_matches_cpu(tmp_path, arch, shape):
+    """A prefill and three decode steps of a reduced model over a (1, 2)
+    mesh of two NCCL ranks, one card each (the cache's sequence cut over
+    "model": the kernel's partial mode on each card, the all-gather of
+    (o, m, l) over NCCL, ``merge_partials``; jamba's ``moe_ep`` over ep 2
+    and its SSM layers), or a (2, 2) mesh of four (the batch cut over
+    "data" as well, so ``local_map``'s groups are those of each mesh
+    dim), against the same run on as many CPU gloo ranks (the plain
+    partial): every logit within 1e-4 (float32, no TF32; the reduced
+    models' card-vs-CPU tolerance), and the kernel launched once per
+    attention layer per decode step on each card.  Needs a card a
+    rank."""
+    n = shape[0] * shape[1]
+    _need_cards(n)
+    from repro_torch.configs import get_config
+    from repro_torch.launch import local
+    from repro_torch.launch.mesh import spawn_local
+    cfg = get_config(arch).reduced()
+    positions = [16, 17, 8]
+    local.decode_inputs(str(tmp_path), cfg, positions)
+    got = {}
+    for dev, backend in (("cuda", "cpu:gloo,cuda:nccl"), ("cpu", "gloo")):
+        out = tmp_path / dev
+        out.mkdir()
+        spawn_local(local.sharded_decode_rank, n,
+                    [(arch, cfg, str(tmp_path))], shape,
+                    ("data", "model"), str(out), dev, timeout=300,
+                    backend=backend)
+        got[dev] = [np.load(out / f"rank{r}.npz") for r in range(n)]
+    attn = sum(s.kind == "attn" for s in cfg.layer_plan())
+    for c, p in zip(got["cuda"], got["cpu"]):
+        assert int(c[f"{arch}/launches"]) == attn * len(positions)
+        assert np.isfinite(c[f"{arch}/logits"]).all()
+        np.testing.assert_allclose(c[f"{arch}/logits"], p[f"{arch}/logits"],
+                                   rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_sharded_train_tp_ep_across_cards_matches_cpu(tmp_path):
+    """``make_train_step`` over a (1, 2) mesh of two NCCL ranks, one card
+    each (reduced OLMoE at capacity factor 1.0: TP over "model" and
+    ``moe_ep`` over ep 2, pairs dropped), against the same two steps on
+    two CPU gloo ranks from one step-0 checkpoint: the losses within
+    1e-5, the grad norms within rtol 1e-4, every first-step gradient
+    within atol 1e-5 + rtol 1e-3 and each parameter's update within
+    1e-3 of the CPU's in the L2 norm (tests/test_torch_sharded.py's
+    bounds).  Needs two cards."""
+    _need_cards(2)
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import local
+    from repro_torch.launch.mesh import spawn_local
+    from repro_torch.models import model as TM
+    from repro_torch.optim import AdamWConfig, make_train_state
+    cfg = get_config("olmoe-1b-7b").reduced(capacity_factor=1.0)
+    opt = AdamWConfig(lr=1e-2, warmup_steps=2)
+    dcfg = DataConfig(256, 32, 4, 0)
+    state0 = make_train_state(TM.init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu"), opt)
+    CheckpointManager(str(tmp_path / "ckpt")).save(0, state0)
+    got = {}
+    for dev, backend in (("cuda", "cpu:gloo,cuda:nccl"), ("cpu", "gloo")):
+        out = tmp_path / dev
+        out.mkdir()
+        spawn_local(local.sharded_train_rank, 2, cfg, dcfg, opt, (1, 2),
+                    ("data", "model"), 2, str(tmp_path / "ckpt"), str(out),
+                    dev, timeout=300, backend=backend)
+        got[dev] = [np.load(out / f"rank{r}.npz") for r in range(2)]
+    card, cpu = got["cuda"][0], got["cpu"][0]
+    for g in got["cuda"]:
+        assert g["blocks"].size == 0
+        np.testing.assert_array_equal(g["losses"], card["losses"])
+    np.testing.assert_allclose(card["losses"], cpu["losses"], rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(card["grad_norms"], cpu["grad_norms"],
+                               rtol=1e-4)
+    for k in (k for k in cpu.files if k.startswith("g[")):
+        np.testing.assert_allclose(card[k], cpu[k], rtol=1e-3, atol=1e-5,
+                                   err_msg=k)
+    from repro_torch.tree import walk
+    for key, _, a in walk(state0["params"]):
+        want = cpu[f"p{key}"] - a.numpy()
+        err = np.linalg.norm(card[f"p{key}"] - a.numpy() - want)
+        assert err <= 1e-3 * max(np.linalg.norm(want), 1e-12), (key, err)
+
+
+FULL_SERVE = dict(batch=4, prompt_len=1024, max_len=8192, steps=32)
+
+
+@pytest.mark.cuda
+def test_jamba_full_width_serves_across_four_cards(tmp_path):
+    """jamba-v0.1-52b at its published widths (bfloat16, random weights,
+    each rank drawing its own blocks) over a (1, 4) mesh of four NCCL
+    ranks, one card each: a prefill of 4 prompts of 1,024 tokens into an
+    8,192-deep cache cut 2,048 positions a rank over "model", 32 greedy
+    decode steps (every decode position in rank 0's block: rank 0 partly
+    valid, ranks 1-3 fully masked) and one at position 4,106 (ranks 0-1
+    fully valid, rank 2 partly, rank 3 masked).  Every rank gives the
+    same finite logits; the decode kernel runs 4 times a step (its 4
+    attention layers, partial mode), the router 16 times a prefill or
+    step (``moe_ep`` over ep 4), the SSD scan 28 times a prefill.  The
+    first two decode steps, rerun from the caches they read: by the
+    kernel route they give the run's logits, and each of their attention
+    calls is within 3e-2 of the plain partial route's on the same inputs
+    (the decode kernel's bfloat16 tolerance, scaled by the output's
+    largest value above 1).  By the plain partial route, every checked
+    step's batch rows whose ``moe_ep`` routing is the kernel route's on
+    every rank give logits within 3e-2 of the kernel route's, scaled
+    likewise; every step holds at least one row, and more than half of
+    all the steps' rows are held.  The top-2 choice is discrete, so an
+    attention output a bfloat16 step apart can flip a near tie and
+    change that token's whole output; the rows that flipped are in the
+    record.  The rank function is ``tests/torch_serve_check.py``'s.  The
+    readings go to ``chiprun_out/jamba_sharded_serve.json``, written
+    before the checks.  Needs four cards."""
+    _need_cards(4)
+    import json
+    import os
+    import time
+    from repro_torch.launch.mesh import spawn_local
+    from torch_serve_check import serve_check_rank
+    out = tmp_path / "out"
+    out.mkdir()
+    t0 = time.perf_counter()
+    spawn_local(serve_check_rank, 4, "jamba-v0.1-52b", (1, 4),
+                ("data", "model"), str(out), FULL_SERVE["batch"],
+                FULL_SERVE["prompt_len"], FULL_SERVE["max_len"],
+                FULL_SERVE["steps"], timeout=900,
+                backend="cpu:gloo,cuda:nccl")
+    wall_s = time.perf_counter() - t0
+    ranks = [np.load(out / f"rank{r}.npz") for r in range(4)]
+    steps = FULL_SERVE["steps"] + 1
+    r0 = ranks[0]
+
+    def scaled_err(a, b):
+        return float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+    flipped = np.any([g["flipped"] for g in ranks], axis=0)  # (2, B)
+    held = [np.flatnonzero(~f) for f in flipped]
+    dec = [g["decode_ms"][1:FULL_SERVE["steps"]] for g in ranks]
+    errs = {"attn_scaled": max(float((g["attn_err"] / np.maximum(
+                1.0, g["attn_scale"])).max()) for g in ranks),
+            "attn_abs": max(float(g["attn_err"].max()) for g in ranks),
+            "logits_rerun_scaled": max(scaled_err(
+                g["check_kernel"], g["logits"][:, 1:3]) for g in ranks),
+            "logits_routes_scaled": [max(scaled_err(
+                g["check_plain"][rows, i], g["check_kernel"][rows, i])
+                for g in ranks) if len(rows) else None
+                for i, rows in enumerate(held)],
+            "logits_routes_abs_all_rows": max(float(np.abs(
+                g["check_plain"] - g["check_kernel"]).max()) for g in ranks),
+            "flipped_rows": [np.flatnonzero(f).tolist() for f in flipped]}
+    rec = {"card": torch.cuda.get_device_name(0), "cards": 4,
+           "wall_s": wall_s,
+           "prefill_ms": [float(g["prefill_ms"]) for g in ranks],
+           "prefill_cold_ms": [float(g["prefill_cold_ms"]) for g in ranks],
+           "decode_ms_p50": [float(np.percentile(d, 50)) for d in dec],
+           "decode_ms_p95": [float(np.percentile(d, 95)) for d in dec],
+           "first_step_ms": [float(g["decode_ms"][0]) for g in ranks],
+           "extra_step_ms": [float(g["decode_ms"][-1]) for g in ranks],
+           "init_s": [float(g["init_s"]) for g in ranks],
+           "init_peak_gb": [int(g["init_peak_bytes"]) / 1e9 for g in ranks],
+           "peak_gb": [int(g["peak_bytes"]) / 1e9 for g in ranks],
+           "dropped_share": sum(int(g["dropped"]) for g in ranks)
+           / max(1, sum(int(g["pairs"]) for g in ranks)),
+           "errors": errs,
+           "launches": {k[len("launches_"):]: int(r0[k]) for k in r0.files
+                        if k.startswith("launches_")}}
+    root = pathlib.Path(__file__).resolve().parents[1] / "chiprun_out"
+    root.mkdir(exist_ok=True)
+    tmp = root / "jamba_sharded_serve.json.tmp"
+    tmp.write_text(json.dumps(rec, indent=1))
+    os.replace(tmp, root / "jamba_sharded_serve.json")
+    print(json.dumps(rec))
+    assert r0["logits"].shape == (4, steps + 1, 65536)
+    assert np.isfinite(r0["logits"]).all()
+    assert int(r0["extra_pos"]) == 4106
+    for g in ranks:
+        np.testing.assert_array_equal(g["logits"], r0["logits"])
+        assert int(g["launches_decode_decode_attention"]) == 4 * steps
+        assert int(g["launches_prefill_decode_attention"]) == 0
+        assert int(g["launches_prefill_moe_route"]) == 16
+        assert int(g["launches_decode_moe_route"]) == 16 * steps
+        assert int(g["launches_prefill_ssd_scan"]) == 28
+        assert int(g["launches_decode_ssd_scan"]) == 0
+        assert g["attn_err"].shape == (4 * 2,)
+        assert int(g["peak_bytes"]) < torch.cuda.get_device_properties(
+            0).total_memory
+    assert errs["attn_scaled"] <= 3e-2
+    assert errs["logits_rerun_scaled"] <= 3e-2
+    assert all(len(rows) for rows in held)
+    assert sum(len(rows) for rows in held) > flipped.size / 2
+    assert max(errs["logits_routes_scaled"]) <= 3e-2

@@ -144,21 +144,49 @@ def test_sharded_train_step_matches_reference(tmp_path, arch, over, shape,
 SERVE_ARCHS = ("gemma3-27b", "olmoe-1b-7b", "mamba2-780m")
 
 
+def _plain_decode(cfg, path):
+    """The plain steps (one process, whole tensors, ``moe_dense``) on
+    ``local.decode_inputs``' inputs under ``path``: the prefill's last
+    logits, then each teacher-forced decode step's."""
+    from repro_torch.models import model as TM
+    params = torch.load(path / "params.pt")
+    with np.load(path / "in.npz") as z:
+        logits, cache = TM.prefill(params, cfg, {
+            "tokens": torch.from_numpy(z["tokens"])},
+            max_len=int(z["max_len"]))
+        out = [logits]
+        for pos, tok in zip(z["pos"].tolist(), z["step_tokens"]):
+            logits, cache = TM.decode_step(params, cfg, cache,
+                                           torch.from_numpy(tok), pos)
+            out.append(logits)
+    return torch.cat(out, 1).numpy()
+
+
 def test_sharded_prefill_decode_match_plain(tmp_path):
-    """``make_prefill_step`` and two ``make_decode_step`` steps over a
-    (2, 2) mesh of 4 gloo ranks on DTensors (the KV cache's sequence cut
-    over "model"; a decode step writes into the block holding its
-    position) give the plain steps' logits within 1e-5 on every rank:
-    reduced gemma3 (windows, a 2-layer period), olmoe (``moe_ep``; no
-    pair dropped at the reduced capacity factor, so ``moe_dense``'s
-    function) and mamba2 (the SSM cache, heads cut over "model")."""
-    spawn_local(local.sharded_serve_rank, 4, SERVE_ARCHS, (2, 2),
-                ("data", "model"), str(tmp_path), timeout=JOIN_S)
-    for rank in range(4):
-        got = np.load(tmp_path / f"rank{rank}.npz")
-        for arch in SERVE_ARCHS:
-            np.testing.assert_allclose(got[f"{arch}/logits"],
-                                       got[f"{arch}/plain"], rtol=0,
+    """``make_prefill_step`` and two teacher-forced ``make_decode_step``
+    steps over a (2, 2) mesh of 4 gloo ranks on DTensors (the KV cache's
+    sequence cut over "model": each rank's partial softmax, merged
+    across the ranks; a decode step writes into the block holding its
+    position) give the plain steps' logits within 1e-5 on every rank: 4
+    prompts of 16 seeded tokens, a 24-deep cache; reduced gemma3
+    (windows, a 2-layer period), olmoe (``moe_ep``; no pair dropped at
+    the reduced capacity factor, so ``moe_dense``'s function) and mamba2
+    (the SSM cache, heads cut over "model")."""
+    cases = []
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch).reduced()
+        (tmp_path / arch).mkdir()
+        local.decode_inputs(str(tmp_path / arch), cfg, [16, 17], max_len=24)
+        cases.append((arch, cfg, str(tmp_path / arch)))
+    out = tmp_path / "out"
+    out.mkdir()
+    spawn_local(local.sharded_decode_rank, 4, cases, (2, 2),
+                ("data", "model"), str(out), timeout=JOIN_S)
+    for arch, cfg, path in cases:
+        want = _plain_decode(cfg, tmp_path / arch)
+        for rank in range(4):
+            got = np.load(out / f"rank{rank}.npz")
+            np.testing.assert_allclose(got[f"{arch}/logits"], want, rtol=0,
                                        atol=1e-5, err_msg=arch)
 
 
