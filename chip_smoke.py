@@ -138,9 +138,14 @@ Phases (one JSON line each):
    against autograd through the plain version on the card (untied),
    within 1e-6, at T 1,024 and 4,096, E 64, k 8, renormalised or not,
    float32 and bfloat16 dense weights; the SSD Function's gradients of
-   the conv output, dt and A against the CPU's within 3e-4 (float32) at
-   reduced mamba2's shape and one full-width mamba2 layer's (1 x 4,096
-   x 48 x 64); then both backwards' times at the training shapes;
+   the conv output, dt and A through the SSD backward kernel (one
+   launch each) against the CPU's within 3e-4 (float32) at reduced
+   mamba2's shape and one full-width mamba2 layer's (1 x 4,096 x 48 x
+   64); then both backwards at the training shapes: the router's time,
+   and the SSD backward kernel against the plain version on the card in
+   bfloat16 (``kernel.BWD_BF16_TOL`` of each gradient's largest magnitude)
+   at mamba2-train's (4 x 4,096), its graph and eager time, bound and
+   peak beside the plain version's time and peak;
    ``moe_ep_vs_plain``: one full-width OLMoE MoE layer (``MOE_EP_LAYER``:
    T 4,096, bfloat16, 640 slots an expert) through ``moe_ep`` on the
    card and on the CPU: ``buf_tok`` and the per-expert counts exactly
@@ -157,7 +162,9 @@ Phases (one JSON line each):
    longer than the run), every launch count set to 0 just before and
    read just after and equal to ``_train_launches`` (moe_route or
    ssd_scan twice per layer a step: the forward and the remat
-   recompute; no other kernel), finite losses, step ms p50 / p95 after
+   recompute; the SSD backward kernel once per SSD layer a step, as
+   often as ``_SSDScan.backward`` is called, and the plain backward
+   never; no other kernel), finite losses, step ms p50 / p95 after
    the first step, tokens/s, peak memory and ``moe_ep``'s dropped share;
    then one more step's gradients outside the Trainer on its mesh, every
    leaf (every row of a stacked one) finite and non-zero, the router,
@@ -206,7 +213,11 @@ Phases (one JSON line each):
    valid window's bytes and SDPA on the same range); its
    ``launches_by_path`` counts every serving path's launches, and
    moe_route's and ssd_scan's count their serving and training paths';
-   those two also carry their backward's route and time (``backward``).
+   moe_route's also carries its backward's route and time
+   (``backward``).  The SSD backward kernel has an entry of its own
+   (``ssd_scan_backward``: its launches on mamba2-train, its bfloat16
+   error against the plain version, graph and eager ms, bound, peak;
+   the plain version's ms, eager, and peak).
 
 Each phase's wall seconds and the total stand on the ``done`` line.
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -339,23 +350,27 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def _kernel_modules():
-    """name -> wrapper module of every kernel (each has ``LAUNCHES``)."""
+def _kernel_counters():
+    """name -> (wrapper module, its launch counter) of every kernel; the
+    SSD scan's backward counts in a counter of its own."""
     from repro_torch.kernels.decode_attention import kernel as DK
     from repro_torch.kernels.market_clear import kernel as MK
     from repro_torch.kernels.moe_route import kernel as RK
     from repro_torch.kernels.ssd_scan import kernel as SK
-    return {"market_clear": MK, "decode_attention": DK, "moe_route": RK,
-            "ssd_scan": SK}
+    return {"market_clear": (MK, "LAUNCHES"),
+            "decode_attention": (DK, "LAUNCHES"),
+            "moe_route": (RK, "LAUNCHES"), "ssd_scan": (SK, "LAUNCHES"),
+            "ssd_scan_backward": (SK, "BACKWARD_LAUNCHES")}
 
 
 def _reset_launches() -> None:
-    for mod in _kernel_modules().values():
-        mod.LAUNCHES = 0
+    for mod, attr in _kernel_counters().values():
+        setattr(mod, attr, 0)
 
 
 def _read_launches():
-    return {name: mod.LAUNCHES for name, mod in _kernel_modules().items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _kernel_counters().items()}
 
 
 # ------------------------------------------------------------------ phase 1
@@ -747,7 +762,7 @@ def _expected_launches(cfg, rep):
     return {"market_clear": 0,
             "decode_attention": (n_attn + n_cross) * rep.decode_steps,
             "moe_route": n_moe * (rep.prefills + rep.decode_steps),
-            "ssd_scan": n_ssm * rep.prefills}
+            "ssd_scan": n_ssm * rep.prefills, "ssd_scan_backward": 0}
 
 
 def phase_reduced_server(dev, arch, prompt_len):
@@ -2026,7 +2041,9 @@ def _train_launches(cfg, steps):
     per MoE layer and ssd_scan once per SSD layer in the forward, and
     once more per such layer of a superblock in the backward's remat
     recompute (``cfg.remat``; head and tail layers are not
-    rematerialised); decode_attention and market_clear never."""
+    rematerialised); the SSD backward once per SSD layer (one
+    ``_SSDScan.backward`` a layer, remat or not); decode_attention and
+    market_clear never."""
     plan = cfg.layer_plan()
     head, p, n_super, _ = cfg.plan_blocks()
     runs = [2 if cfg.remat and head <= i < head + p * n_super else 1
@@ -2035,7 +2052,9 @@ def _train_launches(cfg, steps):
             "moe_route": steps * sum(r for r, spec in zip(runs, plan)
                                      if spec.moe),
             "ssd_scan": steps * sum(r for r, spec in zip(runs, plan)
-                                    if spec.kind == "ssm")}
+                                    if spec.kind == "ssm"),
+            "ssd_scan_backward": steps * sum(spec.kind == "ssm"
+                                             for spec in plan)}
 
 
 def _route_grad(logits, k, renorm, dt, up, plain=False):
@@ -2071,15 +2090,19 @@ def phase_train_kernels_vs_plain(dev):
     card (untied logits, within 1e-6: on ties that autograd follows
     torch's max, not the kernel's lowest index), at T 1,024 and 4,096, E
     64, k 8, renormalised and not, dense weights float32 and bfloat16;
-    the SSD Function's input gradients against the CPU's (float32,
-    within 3e-4) at reduced mamba2's shape and at one full-width mamba2
-    layer's (1 x 4,096 x 48 x 64, N 128, Q 256).  Then the backward's
-    time on the card at each training path's shape.  Returns those
-    times for the ``kernels`` line."""
+    the SSD Function's input gradients through its backward kernel
+    (one launch each) against the CPU's (float32, within 3e-4) at
+    reduced mamba2's shape and at one full-width mamba2 layer's (1 x
+    4,096 x 48 x 64, N 128, Q 256).  Then the backwards at each training
+    path's shape: the router's closed form timed; the SSD backward
+    kernel held to the plain version on the card in bfloat16 (within
+    ``kernel.BWD_BF16_TOL`` of each gradient's largest magnitude) and
+    timed beside it, with its bound and both peaks.  Returns those
+    readings for the ``kernels`` line."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.moe_route import ops as RO
-    from repro_torch.kernels.ssd_scan import ops as SO
+    from repro_torch.kernels.ssd_scan import kernel as SK
     from repro_torch.kernels.ssd_scan import ref as SR
     for T in (1024, 4096):
         for renorm in (False, True):
@@ -2115,22 +2138,25 @@ def phase_train_kernels_vs_plain(dev):
                                              torch.float32)
         xbc = xs._base if xs._base is not None else xs
         up = _randn((B, S, H, P), S + 1, "cpu", torch.float32)
+        before = SK.BACKWARD_LAUNCHES
         got = _ssd_grads(xbc.to(dev), dt_.to(dev), A.to(dev), up.to(dev),
                          H, P, N, Q)
+        launched = SK.BACKWARD_LAUNCHES - before
         want = _ssd_grads(xbc, dt_, A, up, H, P, N, Q)
         errs = {n: float((g.cpu() - w).abs().max())
                 for n, g, w in zip(("xbc", "dt", "A"), got, want)}
         ok = all(bool(torch.allclose(g.cpu(), w, rtol=3e-4, atol=3e-4))
-                 and float(w.abs().max()) > 0 for g, w in zip(got, want))
+                 and float(w.abs().max()) > 0 for g, w in zip(got, want)) \
+            and launched == 1
         emit({"phase": "train_kernels_vs_plain", "kernel": "ssd_scan",
               "case": f"grad_{name}_float32", "shape": [B, S, H, P, N],
               "chunk": Q, "max_abs_err": errs,
               "grad_max_abs": {n: float(w.abs().max())
                                for n, w in zip(("xbc", "dt", "A"), want)},
-              "tolerance": 3e-4, "ok": ok})
+              "backward_launches": launched, "tolerance": 3e-4, "ok": ok})
         if not ok:
             fail(f"the SSD backward on the card differs from the CPU's at "
-                 f"{name}: {errs}")
+                 f"{name}: {errs} ({launched} backward launches)")
     # the backwards' time at the training paths' shapes (bf16, as trained)
     T, E, k = 4096, 64, 8
     logits = _randn((T, E), 31, dev, torch.float32)
@@ -2144,25 +2170,111 @@ def phase_train_kernels_vs_plain(dev):
              "ms": _graph_ms(route_bwd, 50),
              "ms_eager": _time_ms(route_bwd, 50),
              "shape": {"T": T, "E": E, "k": k, "dense": "torch.bfloat16"}}
+    ssd = _ssd_backward_numbers(dev)
+    emit({"phase": "train_backward_times", "moe_route": route,
+          "ssd_scan_backward": ssd})
+    if not ssd["ok"]:
+        fail(f"the SSD backward kernel differs from the plain version on "
+             f"the card in bfloat16: {ssd['max_abs_err_by_grad']} against "
+             f"{ssd['tolerance_of_max']} of {ssd['grad_max_abs']}")
+    return {"moe_route": route, "ssd_scan_backward": ssd}
+
+
+def _ssd_backward_operations(B, S, H, P, N, Q, with_state=False):
+    """The least work the SSD backward needs on these shapes: products on
+    the tensor cores (2 per multiply-add) and the float32 elementwise work
+    beside them.  Products: C·Bᵀ over the pairs j <= i of each chunk
+    (once for all heads); dW = gy·xᵀ and Wᵀ·gy over the pairs of each
+    head; dGᵀ·C and dG·B once a chunk, not once a head (both are linear
+    in dG, and Bm and Cm are shared by every head, so Σ_h dG_hᵀ·C =
+    (Σ_h dG_h)ᵀ·C); the chunk states again (the forward's pass 1); each
+    chunk's state gradient (gy exp(cum))ᵀ·C and gy·S_c past the first
+    chunk (the state entering it is zero); and the carry's two terms B·Rᵀ
+    and x·R wherever the state gradient leaving the chunk is not zero
+    (every chunk but the last without an upstream gradient on the final
+    state).  Elementwise, per head and pair: the decay L = E dt_j (E a
+    product of two per-position exponentials; 2), W = G L and dG = dW L
+    (2), dW W and its row and column sums (3), and the head sum of dG
+    (1).  Returns (products, elementwise, parts)."""
+    pairs = sum(nv * (nv + 1) // 2
+                for nv in (min(Q, S - c0) for c0 in range(0, S, Q)))
+    past_first = max(0, S - Q)
+    carried = S if with_state else (S - 1) // Q * Q   # all but the last
+    parts = {"gram": 2 * B * pairs * N,
+             "dW": 2 * B * pairs * H * P,
+             "gx_from_W": 2 * B * pairs * H * P,
+             "gB_gC_from_dG": 2 * 2 * B * pairs * N,
+             "state_recompute": 2 * B * S * H * P * N,
+             "state_grad": 2 * B * past_first * H * P * N,
+             "gC_from_state": 2 * B * past_first * H * P * N,
+             "carry_terms": 2 * 2 * B * carried * H * P * N}
+    products = sum(parts.values())
+    parts["elementwise"] = 8 * B * pairs * H
+    return products, parts["elementwise"], parts
+
+
+def _ssd_backward_numbers(dev):
+    """The SSD backward at mamba2-train's shape (B 4, S 4,096, H 48, P 64,
+    N 128, Q 256, bfloat16, no upstream gradient on the final state, as
+    training calls it): the kernel against the plain version on the card
+    (``kernel.BWD_BF16_TOL``), the kernel's time in a CUDA graph and eager,
+    the plain version's eager (autograd through ``ssd_scan_ref``; no
+    graph), each one's peak memory above what the inputs hold, and the
+    kernel's bound."""
+    import torch
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    from repro_torch.kernels.ssd_scan import ref as SR
     B, S, H, P, N, Q = 4, 4096, 48, 64, 128, 256
     args = SR.sample_inputs(B, S, H, P, N, 33, dev, torch.bfloat16)
     g_y = _randn((B, S, H, P), 34, dev, torch.bfloat16)
     needs = (True,) * 5
 
-    def ssd_bwd(i):
-        return SO.ssd_scan_backward(args, Q, g_y, None, needs)
-    torch.cuda.reset_peak_memory_stats(dev)
-    base = torch.cuda.memory_allocated(dev)
-    ssd = {"route": "torch (the plain version recomputed under autograd, "
-                    "kernels/ssd_scan/ops.py ssd_scan_backward)",
-           "ms_eager": _time_ms(ssd_bwd, 3),
-           "peak_extra_gb": (torch.cuda.max_memory_allocated(dev) - base)
-           / 1e9,
-           "shape": {"B": B, "S": S, "H": H, "P": P, "N": N, "Q": Q,
-                     "dtype": "torch.bfloat16"}}
-    emit({"phase": "train_backward_times", "moe_route": route,
-          "ssd_scan": ssd})
-    return {"moe_route": route, "ssd_scan": ssd}
+    def kernel(i):
+        return SK.ssd_scan_backward_cuda(*args, Q, g_y, None)
+
+    def plain(i):
+        return SR.ssd_scan_backward_ref(args, Q, g_y, None, needs)
+
+    def peak_gb(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        out = fn(0)
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    got, kernel_gb = peak_gb(kernel)
+    want, plain_gb = peak_gb(plain)
+    names = ("x", "dt", "A", "Bm", "Cm")
+    errs = {n: float((g.float() - w.float()).abs().max())
+            for n, g, w in zip(names, got, want)}
+    scale = {n: float(w.float().abs().max()) for n, w in zip(names, want)}
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    ok = finite and all(0 < scale[n] and errs[n] <= SK.BWD_BF16_TOL
+                        * scale[n] for n in names)
+    del got, want
+    times = {"ms": _graph_ms(kernel, 10), "ms_eager": _time_ms(kernel, 10),
+             "plain_ms": _time_ms(plain, 3)}
+    esize = args[0].element_size()
+    nbytes = (esize * (3 * B * S * H * P + 4 * B * S * N)  # x gy gx B C gB gC
+              + 4 * (2 * B * S * H + 2 * H))               # dt gdt A gA
+    ops, elementwise, parts = _ssd_backward_operations(B, S, H, P, N, Q)
+    bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
+    # the elementwise work runs beside the tensor cores, at the f32 rate
+    elementwise_ms = elementwise / FP32_OPS_PER_S * 1e3
+    if elementwise_ms > bound_ms:
+        bound_ms, bound_by = elementwise_ms, "operations"
+    return {"ok": ok, "max_abs_err_by_grad": errs, "grad_max_abs": scale,
+            "tolerance_of_max": SK.BWD_BF16_TOL, "finite": finite,
+            "max_abs_err": max(errs.values()), **times,
+            "plain_route": "autograd through ssd_scan_ref "
+                           "(kernels/ssd_scan/ref.py ssd_scan_backward_ref)",
+            "plain_ms_is": "eager (host enqueue included)",
+            "peak_extra_gb": kernel_gb, "plain_peak_extra_gb": plain_gb,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "operations": ops, "elementwise_operations": elementwise,
+            "elementwise_ms": elementwise_ms, "operations_by_part": parts,
+            "shape": {"B": B, "S": S, "H": H, "P": P, "N": N, "Q": Q,
+                      "dtype": "torch.bfloat16", "g_state": None}}
 
 
 def _train_batches(cfg, B, S, steps):
@@ -2271,6 +2383,30 @@ def _drop_share(records):
 TRAIN_SUMMARY = {}               # phase_train's readings by arch
 
 
+@contextlib.contextmanager
+def _ssd_backward_routes():
+    """Counts, while the block runs, ``_SSDScan.backward``'s calls
+    (``ops.ssd_scan_backward``) and the plain backward's
+    (``ref.ssd_scan_backward_ref``, the route of ``cpu`` and ``meta``
+    tensors)."""
+    from repro_torch.kernels.ssd_scan import ops as SO
+    from repro_torch.kernels.ssd_scan import ref as SR
+    counts = {"backward_calls": 0, "plain_backward_calls": 0}
+    route, plain = SO.ssd_scan_backward, SR.ssd_scan_backward_ref
+
+    def counted(key, fn):
+        def call(*a, **k):
+            counts[key] += 1
+            return fn(*a, **k)
+        return call
+    SO.ssd_scan_backward = counted("backward_calls", route)
+    SR.ssd_scan_backward_ref = counted("plain_backward_calls", plain)
+    try:
+        yield counts
+    finally:
+        SO.ssd_scan_backward, SR.ssd_scan_backward_ref = route, plain
+
+
 def phase_train(dev, arch, card):
     """A full-width train run through ``launch.train.train`` and
     ``Trainer.run`` on a one-rank NCCL group (the trainer's (1, 1) mesh,
@@ -2280,7 +2416,9 @@ def phase_train(dev, arch, card):
     set to 0 just before and read just after, and the share of
     (token, expert) pairs ``moe_ep`` dropped; then one more step's
     gradients outside the Trainer on its mesh: every parameter leaf (and
-    every row of a stacked one) finite and non-zero."""
+    every row of a stacked one) finite and non-zero.  The SSD backward
+    kernel launches once per ``_SSDScan.backward`` call and the plain
+    backward never runs on the card."""
     import shutil
     import torch
     from repro_torch.launch.train import train
@@ -2299,10 +2437,11 @@ def phase_train(dev, arch, card):
     _reset_launches()
     TL.DISPATCH = []
     t0 = time.perf_counter()
-    tr, rep = train(arch, steps=steps, seq_len=S, global_batch=B, full=True,
-                    ckpt_dir=str(ckdir), opt=opt, checkpoint_every=steps + 1,
-                    device=dev)
-    torch.cuda.synchronize()
+    with _ssd_backward_routes() as routes:
+        tr, rep = train(arch, steps=steps, seq_len=S, global_batch=B,
+                        full=True, ckpt_dir=str(ckdir), opt=opt,
+                        checkpoint_every=steps + 1, device=dev)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _read_launches()
     dropped = _drop_share(TL.DISPATCH)
@@ -2355,7 +2494,8 @@ def phase_train(dev, arch, card):
           "loss_last": rep.losses[-1], "losses_finite": finite,
           "loss_fell": rep.losses[-1] < rep.losses[0],
           "stragglers": rep.stragglers, "launches": launches,
-          "expected_launches": want, "wall_with_init_s": wall,
+          "expected_launches": want, "ssd_backward_routes": routes,
+          "wall_with_init_s": wall,
           "extra_step": {"loss": extra_loss, "grad_leaves": n_leaves,
                          "bad_leaves": bad, "named": named}})
     if not finite or not math.isfinite(extra_loss):
@@ -2364,6 +2504,10 @@ def phase_train(dev, arch, card):
     if launches != want:
         fail(f"the {cfg.name} train path launched {launches}; expected "
              f"{want}")
+    if routes["plain_backward_calls"] or \
+            routes["backward_calls"] != launches["ssd_scan_backward"]:
+        fail(f"the {cfg.name} train path's SSD backwards: {routes}, "
+             f"{launches['ssd_scan_backward']} kernel launches")
     if bad:
         fail(f"{cfg.name}: gradients non-finite or zero in {bad}")
     TRAIN_SUMMARY[arch] = {"losses": list(rep.losses),
@@ -3153,6 +3297,29 @@ def _ssd_scan_entry(rep, launches, measured):
             "bytes": nbytes, "operations": ops, "operations_by_part": parts}
 
 
+def _ssd_scan_backward_entry(ssd, launches):
+    """The SSD backward kernel at mamba2-train's shape, with its launches
+    on that path (``train_mamba2``); the Pallas kernel has no backward,
+    so it replaces no TPU kernel: the reference differentiates
+    ``ssd_chunked`` with XLA's autodiff."""
+    keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "ms_eager", "plain_ms_is", "plain_route", "peak_extra_gb",
+            "plain_peak_extra_gb", "max_abs_err_by_grad", "grad_max_abs",
+            "tolerance_of_max", "shape", "bytes", "operations",
+            "elementwise_operations", "elementwise_ms", "operations_by_part")
+    n = launches["ssd_scan_backward"]
+    return {"name": "ssd_scan_backward", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "none: src/repro/kernels/ssd_scan/kernel.py:70 has "
+                        "no backward (the reference takes XLA's autodiff of "
+                        "src/repro/models/layers.py:308 ssd_chunked)",
+            "launches": n,
+            "launches_by_path": {f"{SSM_ARCH} train": n},
+            **{k: ssd[k] for k in keep}, "library_ms": None,
+            "library": "none (no single PyTorch call computes the scan's "
+                       "gradients)"}
+
+
 def main() -> None:
     try:
         import torch
@@ -3265,7 +3432,11 @@ def main() -> None:
                          arch, card)
         entry = next(e for e in kernels if e["name"] == name)
         entry["launches_by_path"][f"{arch} train"] = launches[name]
-        entry["backward"] = backward[name]
+        if name == "moe_route":
+            entry["backward"] = backward[name]
+    # the SSD backward's launches: train_mamba2's, the loop's last run
+    kernels.append(_ssd_scan_backward_entry(backward["ssd_scan_backward"],
+                                            launches))
     timed("launch_train_market", phase_launch_train_market, dev, card)
     # this slice's main paths: the sharded step and the dry run
     timed("sharded_train", phase_sharded_train, dev, card)

@@ -17,8 +17,10 @@ trainer's step over a one-rank (1, 1) mesh, so the MoE layers run
    Functions' backwards) and ``adamw_update``; medians in ms;
 2. ``torch.profiler`` over one more step: the wall time, the device's
    busy share, the kernel launches (and the router's and the SSD
-   scan's), the device ms of the GEMMs, of the two model kernels and of
-   the rest, and the top operations by device and by host time.
+   scan's, its backward's passes by name; the backward's first pass
+   runs the forward's ``ssd_chunk_state_kernel`` twice and counts
+   there), the device ms of the GEMMs, of the model kernels and of the
+   rest, and the top operations by device and by host time.
 
 Prints one JSON line per result and writes them to
 ``chiprun_out/profile_train-<arch>.jsonl``.  Needs CUDA; it never runs
@@ -38,7 +40,9 @@ from profile_epoch import _event_device_us, summarize
 
 HERE = pathlib.Path(__file__).resolve().parent
 TAGS = ("route_kernel", "ssd_chunk_state_kernel", "ssd_state_pass_kernel",
-        "ssd_chunk_scan_kernel")
+        "ssd_chunk_scan_kernel", "ssd_state_grad_kernel",
+        "ssd_bwd_col_kernel", "ssd_bwd_row_kernel", "ssd_bwd_dt_kernel",
+        "ssd_bwd_sum")
 GEMM_TAGS = ("gemm", "nvjet", "cutlass", "sm90_xmma")
 
 

@@ -1,4 +1,4 @@
-"""The SSD scan as the model calls it: the CUDA kernel on CUDA tensors,
+"""The SSD scan as the model calls it: the CUDA kernels on CUDA tensors,
 the plain version on CPU tensors (and on ``meta`` ones, where it gives
 the shapes and dtypes: the dry run traces there), an error on any other
 device; with a gradient on either.
@@ -8,14 +8,14 @@ the slices of ``ssd_block``'s conv output go in without a copy; a layout
 it cannot read (a non-unit inner stride) is refused by the wrapper.
 
 The kernel's outputs carry no ``grad_fn``, so ``ssd_scan`` is an
-``autograd.Function``.  The forward's outputs always come from the
-kernel (on CUDA).  Its backward recomputes the plain version's chunked
-formula under autograd from the saved inputs and differentiates it:
-what the reference trains through, XLA's autodiff of ``ssd_chunked``
-(the TPU kernel has no backward).  In bfloat16 the two differ: the
-kernel takes ``C·Bᵀ`` in float32 and the chunked formula in bfloat16,
-so the backward is the gradient of a function that is within the bf16
-tolerance (4e-2) of the forward, not of the forward itself.
+``autograd.Function`` that saves only its inputs.  Its backward takes
+the route of its forward: on CUDA tensors the backward kernel
+(``kernel.ssd_scan_backward_cuda``), which differentiates the kernel's
+own forward (C·Bᵀ in float32, W rounded to bfloat16 only as a product's
+operand), with no fallback; on ``cpu`` and ``meta`` tensors the plain
+version recomputed under autograd (``ref.ssd_scan_backward_ref``), the
+gradient of the plain chunked formula, which XLA's autodiff of the
+reference's ``ssd_chunked`` also gives (the TPU kernel has no backward).
 """
 from __future__ import annotations
 
@@ -37,17 +37,21 @@ def _scan(x, dt, A, Bm, Cm, chunk: int):
 def ssd_scan_backward(inputs, chunk: int, g_y, g_state, needs):
     """Gradients of (x, dt, A, Bm, Cm) (None where ``needs`` is False)
     from the upstream gradients of y and of the final state (either may
-    be None), through the plain version recomputed under autograd."""
-    with torch.enable_grad():
-        ins = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
-        y, state = R.ssd_scan_ref(*ins, chunk)
-        outs = [(o, g) for o, g in ((y, g_y), (state, g_state))
-                if g is not None]
-        wrt = [t for t, n in zip(ins, needs) if n]
-        got = iter(torch.autograd.grad([o for o, _ in outs],
-                                       wrt, [g for _, g in outs],
-                                       allow_unused=True))
-    return tuple(next(got) if n else None for n in needs)
+    be None): one launch of the backward kernel on CUDA tensors, the
+    plain version under autograd on ``cpu`` and ``meta`` ones."""
+    x = inputs[0]
+    dev = x.device
+    if dev.type in ("cpu", "meta"):
+        return R.ssd_scan_backward_ref(inputs, chunk, g_y, g_state, needs)
+    if dev.type != "cuda":
+        raise ValueError(f"no SSD scan backward for device {dev}")
+    if g_y is None:                   # only the final state has a gradient
+        g_y = torch.zeros(x.shape, dtype=x.dtype, device=dev)
+    if g_state is not None:
+        g_state = g_state.contiguous()
+    grads = K.ssd_scan_backward_cuda(*inputs, chunk, g_y.contiguous(),
+                                     g_state)
+    return tuple(g if n else None for g, n in zip(grads, needs))
 
 
 class _SSDScan(torch.autograd.Function):

@@ -68,6 +68,24 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return out[:, :s], state
 
 
+def ssd_scan_backward_ref(inputs, chunk: int, g_y, g_state, needs):
+    """Gradients of (x, dt, A, Bm, Cm) (None where ``needs`` is False)
+    from the upstream gradients of y and of the final state (either may
+    be None): ``ssd_scan_ref`` recomputed under autograd from the inputs
+    and differentiated, as the reference trains through XLA's autodiff
+    of ``ssd_chunked``."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        y, state = ssd_scan_ref(*ins, chunk)
+        outs = [(o, g) for o, g in ((y, g_y), (state, g_state))
+                if g is not None]
+        wrt = [t for t, n in zip(ins, needs) if n]
+        got = iter(torch.autograd.grad([o for o, _ in outs],
+                                       wrt, [g for _, g in outs],
+                                       allow_unused=True))
+    return tuple(next(got) if n else None for n in needs)
+
+
 def sample_inputs(B: int, S: int, H: int, P: int, N: int, seed: int,
                   device, dtype: torch.dtype, strided: bool = True):
     """Inputs for holding the kernel to this version: the reference kernel

@@ -1121,9 +1121,11 @@ def test_route_grad_on_card(dtype, renorm):
                                              (1, 1000, 48, 64, 128, 256)])
 def test_ssd_grad_on_card_matches_cpu(B, S, H, P, N, chunk):
     """The SSD Function's gradients of the conv output (x, Bm, Cm as its
-    strided slices), dt and A on the card (the kernel's forward, the
-    recomputed backward) equal the CPU's within 3e-4 (float32)."""
+    strided slices), dt and A on the card (the kernel's forward, one
+    launch of the backward kernel) equal the CPU's (the plain version
+    under autograd) within 3e-4 (float32)."""
     _need_cuda()
+    from repro_torch.kernels.ssd_scan import kernel as SK
     from repro_torch.kernels.ssd_scan import ops as SO
     xs, dt, A, _, _ = sample_inputs(B, S, H, P, N, 9, "cpu", torch.float32)
     xbc = xs._base
@@ -1137,9 +1139,84 @@ def test_ssd_grad_on_card_matches_cpu(B, S, H, P, N, chunk):
         y, _ = SO.ssd_scan(x.reshape(B, S, H, P), ins[1], ins[2], Bm, Cm,
                            chunk)
         return torch.autograd.grad((y * up.to(dev)).sum(), ins)
-    for g, c in zip(grads("cuda"), grads("cpu")):
+    before = SK.BACKWARD_LAUNCHES
+    card = grads("cuda")
+    torch.cuda.synchronize()
+    assert SK.BACKWARD_LAUNCHES == before + 1
+    for g, c in zip(card, grads("cpu")):
         assert float(c.abs().max()) > 0
         torch.testing.assert_close(g.cpu(), c, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [(2, 20, 8, 16, 16, 16),
+                                             (2, 300, 3, 24, 40, 128),
+                                             (1, 1000, 48, 64, 128, 256)])
+def test_ssd_backward_bf16_on_card_matches_plain(B, S, H, P, N, chunk,
+                                                 with_state):
+    """The bfloat16 backward kernel (strided x, Bm, Cm as ``ssd_block``
+    hands them over) against the plain version under autograd on the
+    same card tensors, within ``kernel.BWD_BF16_TOL`` of each gradient's
+    largest magnitude, with and without a gradient on the final state;
+    gx, gBm and gCm come back in bfloat16, gdt and gA in float32."""
+    _need_cuda()
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    from repro_torch.kernels.ssd_scan import ref as SR
+    args = sample_inputs(B, S, H, P, N, 11, "cuda", torch.bfloat16)
+    rng = np.random.default_rng(12)
+    g_y = torch.from_numpy(rng.standard_normal((B, S, H, P))
+                           .astype(np.float32)).cuda().bfloat16()
+    g_s = torch.from_numpy(rng.standard_normal((B, H, P, N))
+                           .astype(np.float32)).cuda() if with_state else None
+    got = SK.ssd_scan_backward_cuda(*args, chunk, g_y, g_s)
+    want = SR.ssd_scan_backward_ref(args, chunk, g_y, g_s, (True,) * 5)
+    torch.cuda.synchronize()
+    for g, w, dt_ in zip(got, want, (torch.bfloat16, torch.float32,
+                                     torch.float32, torch.bfloat16,
+                                     torch.bfloat16)):
+        assert g.dtype == dt_ and g.shape == w.shape
+        scale = float(w.float().abs().max())
+        assert scale > 0 and bool(torch.isfinite(g).all())
+        assert float((g.float() - w.float()).abs().max()) <= \
+            SK.BWD_BF16_TOL * scale
+
+
+def test_ssd_backward_wrapper_rejects_cpu_tensors():
+    """The SSD backward kernel's wrapper refuses CPU tensors before
+    building anything: no fallback to the plain version."""
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    args = sample_inputs(1, 8, 2, 16, 16, 0, "cpu", torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        SK.ssd_scan_backward_cuda(*args, 16, torch.zeros(1, 8, 2, 16))
+
+
+@pytest.mark.cuda
+def test_ssd_backward_wrapper_refuses_layouts_on_card():
+    """What the backward kernel cannot take raises before a launch: a
+    gradient of y whose token is not (H, P) contiguous or of another
+    dtype, a final-state gradient not float32, P over 64 or N over 128
+    (the widths its accumulators hold)."""
+    _need_cuda()
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    args = sample_inputs(1, 32, 2, 16, 16, 1, "cuda", torch.float32)
+    g_y = torch.zeros((1, 32, 2, 16), device="cuda")
+    before = SK.BACKWARD_LAUNCHES
+    with pytest.raises(ValueError, match="strides"):
+        SK.ssd_scan_backward_cuda(
+            *args, 16, g_y.transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(ValueError, match="g_y"):
+        SK.ssd_scan_backward_cuda(*args, 16, g_y.bfloat16())
+    with pytest.raises(ValueError, match="g_state"):
+        SK.ssd_scan_backward_cuda(*args, 16, g_y,
+                                  torch.zeros((1, 2, 16, 16), device="cuda",
+                                              dtype=torch.bfloat16))
+    for P, N in ((80, 16), (16, 256)):
+        wide = sample_inputs(1, 32, 2, P, N, 1, "cuda", torch.float32)
+        with pytest.raises(ValueError, match="backward takes"):
+            SK.ssd_scan_backward_cuda(
+                *wide, 16, torch.zeros((1, 32, 2, P), device="cuda"))
+    assert SK.BACKWARD_LAUNCHES == before
 
 
 @pytest.mark.cuda
