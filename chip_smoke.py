@@ -216,8 +216,9 @@ Phases (one JSON line each):
    moe_route's also carries its backward's route and time
    (``backward``).  The SSD backward kernel has an entry of its own
    (``ssd_scan_backward``: its launches on mamba2-train, its bfloat16
-   error against the plain version, graph and eager ms, bound, peak;
-   the plain version's ms, eager, and peak).
+   error against the plain version, graph and eager ms, bound, peak,
+   the products its loops issue; the plain version's ms, eager, and
+   peak).
 
 Each phase's wall seconds and the total stand on the ``done`` line.
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -2213,14 +2214,51 @@ def _ssd_backward_operations(B, S, H, P, N, Q, with_state=False):
     return products, parts["elementwise"], parts
 
 
+def _ssd_backward_issued(B, S, H, P, N, Q, groups, esize=2,
+                         design="group"):
+    """The products the SSD backward kernel's loops issue on these shapes
+    (``csrc/ssd_scan.cu``), in FLOP, 2 per multiply-add of each mma.sync
+    tile as issued: 64 rows a tile, outputs 64 wide (positions, P) or 64
+    or 128 (N), depths P and N rounded up to 16, whole 64-position tiles.
+    Pass 1 and 1' (the chunk states and their gradients, each split into
+    a bfloat16 head and remainder when ``esize`` is 2: two products);
+    per head group and chunk, for each tile pair j <= i, C·Bᵀ (the column
+    kernel, before its head loop), dGᵀ·C and dG·B on the group's sum (the
+    bc kernel); per head, B_j·Rᵀ and x_j·R a j-tile (the carry), gy_t·S_c
+    a t-tile past the first chunk, and dW, Wᵀ·gy a pair.  ``design``
+    "head" counts the loops this design replaced, which formed C·Bᵀ and
+    dW in both pass-3' kernels and dGᵀ·C, dG·B once per head."""
+    split = 2 if esize == 2 else 1
+    nc_w = 64 if N <= 64 else 128
+    np_, pp = -(-N // 16) * 16, -(-P // 16) * 16
+    unit = 2 * 64 * 64                  # FLOP a unit of depth or width
+    state = B * H * -(-P // 64) * -(-N // 64) * unit * 64 * split
+    total = 0
+    for c, c0 in enumerate(range(0, S, Q)):
+        tiles = -(-min(Q, S - c0) // 64)
+        pairs = tiles * (tiles + 1) // 2
+        total += state * tiles * (2 if c else 1)          # pass 1, 1'
+        carry = tiles * unit * (np_ + nc_w * pp // 64)
+        per_pair = unit * (pp + 64)                       # dW, Wᵀ·gy
+        state_term = tiles * unit * nc_w * pp // 64 if c else 0
+        if design == "group":
+            total += B * (groups * pairs * unit * (np_ + 2 * nc_w)
+                          + H * (carry + pairs * per_pair + state_term))
+        else:
+            total += B * H * (carry + state_term + pairs * (
+                per_pair + unit * pp + 2 * unit * np_ + 2 * unit * nc_w))
+    return total
+
+
 def _ssd_backward_numbers(dev):
     """The SSD backward at mamba2-train's shape (B 4, S 4,096, H 48, P 64,
     N 128, Q 256, bfloat16, no upstream gradient on the final state, as
     training calls it): the kernel against the plain version on the card
     (``kernel.BWD_BF16_TOL``), the kernel's time in a CUDA graph and eager,
     the plain version's eager (autograd through ``ssd_scan_ref``; no
-    graph), each one's peak memory above what the inputs hold, and the
-    kernel's bound."""
+    graph), each one's peak memory above what the inputs hold, the
+    kernel's bound, and the products its loops issue at the head groups
+    the wrapper picks (``_ssd_backward_issued``)."""
     import torch
     from repro_torch.kernels.ssd_scan import kernel as SK
     from repro_torch.kernels.ssd_scan import ref as SR
@@ -2258,6 +2296,9 @@ def _ssd_backward_numbers(dev):
     nbytes = (esize * (3 * B * S * H * P + 4 * B * S * N)  # x gy gx B C gB gC
               + 4 * (2 * B * S * H + 2 * H))               # dt gdt A gA
     ops, elementwise, parts = _ssd_backward_operations(B, S, H, P, N, Q)
+    groups = SK._groups(B, S, H, Q, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    issued = _ssd_backward_issued(B, S, H, P, N, Q, groups, esize)
     bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
     # the elementwise work runs beside the tensor cores, at the f32 rate
     elementwise_ms = elementwise / FP32_OPS_PER_S * 1e3
@@ -2273,6 +2314,7 @@ def _ssd_backward_numbers(dev):
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "operations": ops, "elementwise_operations": elementwise,
             "elementwise_ms": elementwise_ms, "operations_by_part": parts,
+            "issued_products": issued, "head_groups": groups,
             "shape": {"B": B, "S": S, "H": H, "P": P, "N": N, "Q": Q,
                       "dtype": "torch.bfloat16", "g_state": None}}
 
@@ -3306,7 +3348,8 @@ def _ssd_scan_backward_entry(ssd, launches):
             "ms_eager", "plain_ms_is", "plain_route", "peak_extra_gb",
             "plain_peak_extra_gb", "max_abs_err_by_grad", "grad_max_abs",
             "tolerance_of_max", "shape", "bytes", "operations",
-            "elementwise_operations", "elementwise_ms", "operations_by_part")
+            "elementwise_operations", "elementwise_ms", "operations_by_part",
+            "issued_products", "head_groups")
     n = launches["ssd_scan_backward"]
     return {"name": "ssd_scan_backward", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan.cu",

@@ -41,8 +41,8 @@ from profile_epoch import _event_device_us, summarize
 HERE = pathlib.Path(__file__).resolve().parent
 TAGS = ("route_kernel", "ssd_chunk_state_kernel", "ssd_state_pass_kernel",
         "ssd_chunk_scan_kernel", "ssd_state_grad_kernel",
-        "ssd_bwd_col_kernel", "ssd_bwd_row_kernel", "ssd_bwd_dt_kernel",
-        "ssd_bwd_sum")
+        "ssd_bwd_cum_kernel", "ssd_bwd_col_kernel", "ssd_bwd_bc_kernel",
+        "ssd_bwd_dt_kernel", "ssd_bwd_sum")
 GEMM_TAGS = ("gemm", "nvjet", "cutlass", "sm90_xmma")
 
 

@@ -640,11 +640,12 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
 // 88.7 GFLOP (0.090 ms at the bf16 tensor-core rate): dG^T C and dG B
 // are linear in dG and B, C are shared by every head, so they are needed
 // once a chunk on the head sum of dG; its elementwise work, 0.8 G float32
-// operations, takes 0.012 ms beside the tensor cores.  This design does
-// more: C.B^T in every head's loop of both pass-3 kernels, dG^T C and
-// dG B per head, mma.sync tiles, so it runs far from that bound; a G
-// shared across a group's heads, dG summed over the group before its
-// products, wgmma and TMA are later work.
+// operations, takes 0.012 ms beside the tensor cores.  The loops below
+// issue 122 GFLOP of mma.sync at that shape and one head group
+// (chip_smoke.py _ssd_backward_issued): the chunk states twice (pass 1
+// and 1', each x o dt o decay split hi + lo), the carry's and the
+// state's per-head products, dW and W^T gy per head and pair, and, per
+// head group, C B^T once a tile pair and dG^T C, dG B once a tile pair.
 //
 // Nothing is saved by the forward: passes 1-2 run again for the
 // state entering each chunk, S_c.  Then, with R_c the gradient of the
@@ -652,19 +653,38 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
 // gradient, or zero), L_c = cum_last and u_j = exp(L_c - cum_j) dt_j:
 //   1'. D_c = sum_i exp(cum_i) gy_i C_i^T per (batch, chunk > 0, head):
 //       pass 1 with kGrad.
-//   2'. R_{c-1} = exp(L_c) R_c + D_c from the last chunk to the first, in
-//       place of D (ssd_state_grad_kernel), and each block's share of
-//       exp(L_c) <R_c, S_c>, the gradient of L_c through the carry.
-//   3'. ssd_bwd_col_kernel, a block per (64 positions j, head group,
-//       batch x chunk), with j as its rows: G^T = B_j C_i^T and
-//       dW^T = x_j gy_i^T for each tile i >= j, W = G E dt_j and
-//       dG = dW E dt_j (E = exp(cum_i - cum_j), formed only for j <= i),
-//       gx_j = u_j (B_j R_c^T) + W^T gy, gB_j += u_j (x_j R_c) + dG^T C
-//       (summed over the group's heads), and per position the column
-//       sums of dW G E.  ssd_bwd_row_kernel, a block per (64 positions i,
-//       head group, batch x chunk), with i as its rows: the same G and
-//       dW, gC_i += exp(cum_i) gy_i S_c + dG B_j, and the row sums of
-//       dW G E dt_j.
+//   2'. R_{c-1} = exp(L_c) R_c + D_c from the last chunk to the first
+//       (ssd_state_grad_kernel), each block's share of exp(L_c)
+//       <R_c, S_c>, the gradient of L_c through the carry, and R_c and
+//       S_c rounded once to the inputs' dtype: the product operands of
+//       pass 3', half the bytes of float32 and ready for cp.async.
+//   3'. ssd_bwd_cum_kernel: each (batch, chunk, head)'s cum and dt as one
+//       contiguous row.  ssd_bwd_col_kernel, a block of 8 warps per (64
+//       positions j, head group, batch x chunk), with j as its rows (4
+//       strips of 16) and each i-tile's columns in 2 halves of 32.
+//       Before its head loop it forms G^T = B_j C_i^T for every i-tile
+//       >= j (C_i staged once a tile) and keeps it in shared memory as
+//       float32 fragments, each thread's own, beside a zeroed float32
+//       tile of the group's sum of dG^T.  Then, per head:
+//       gx_j = u_j B_j R^T + W^T gy and gB_j += u_j (x_j R) (the carry),
+//       and per i-tile dW^T = x_j gy_i^T, W^T = G^T E dt_j and
+//       dG^T = dW^T E dt_j (E = exp(cum_i - cum_j), formed only for
+//       j <= i: per element on the diagonal tile, below it as
+//       exp(cum_i - cum_jr) (once a head) times exp(cum_jr - cum_j)),
+//       the column sums of dW G E (a quad shuffle) and its row sums
+//       dt_j-weighted (three halving shuffles, then the strips in order,
+//       into per-j-tile partials): W^T feeds W^T gy from registers (the
+//       accumulator fragments are the mma's A operand), dG^T is added to
+//       the group's sum, and the two column halves' parts of gx meet in
+//       shared memory at the head's end.  After the loop the sum is
+//       rounded once to the inputs' dtype and written out as one 64 x 64
+//       tile a pair.  The grid runs j-tile-major, so the blocks with the
+//       most i-tiles start first.  ssd_bwd_bc_kernel, a block per (64
+//       positions t, head group, batch x chunk): gB_t += sum_i dG_ti^T
+//       C_i and gC_t = sum_j dG_jt B_j (each C_i, B_j staged once, each
+//       product once a pair and group), then per head the state's term
+//       gC_t += exp(cum_t) gy_t S_c and the row sums: the column kernel's
+//       partials in j-tile order plus exp(cum_t) C_t . (gy_t S_c).
 //   4'. ssd_bwd_dt_kernel, a block per (head, batch x chunk): the
 //       gradient of cum at each position from the row and column sums,
 //       its reverse cumsum within the chunk, then gdt and the chunk's
@@ -673,17 +693,146 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
 //       group order and casts them; ssd_bwd_sum_a_kernel sums gA's shares
 //       in (batch, chunk) order.  No atomics: a call's result does not
 //       change from run to run.
-// Every product is the forward's warp_mma.  For bfloat16 inputs the
-// operands formed in float32 (W, dG, the carried states S_c and R_c) are
-// rounded to bfloat16 for the product, as the forward rounds W and S_c,
-// and pass 1' splits gy o exp(cum) into head and remainder as pass 1
-// does; gdt and gA are float32 throughout.  The kernel differentiates its
-// own forward (C.B^T in float32, W rounded only as a product's operand),
-// not the plain version's bfloat16 Gram matrix.  P <= 64 and N <= 128:
-// the backward keeps a 64 x P and a 64 x N accumulator a block.
+// The per-head tiles of pass 3' (x_j, gy_i, R_c, S_c, cum, dt) come in
+// by cp.async into rings of shared memory two items ahead of the one in
+// use, so the next head's tiles land while this head's products run.
+// Q > 256 (ki() i-tiles a pass: 4 for bf16, 2 for float32) runs the
+// column kernel's head loop once a pass over the i-tiles that fit,
+// carrying gx in a float32 scratch between passes.  At (Q 256, N 128,
+// bf16) the column kernel holds 214.5 KB of shared memory and 236
+// registers a thread, no spills (one block an SM: 8 warps), the bc kernel
+// 101.0 KB and 247 (two blocks an SM); kernel._groups therefore aims at
+// one column block an SM, and fewer groups form C B^T and the dG
+// products fewer times (one group at mamba2-train's shape).
+// Roundings for bfloat16 inputs: the operands formed in float32 (W, the
+// group's sum of dG, R_c and S_c) are rounded to bfloat16 for the
+// product, as the forward rounds W and S_c, and pass 1' splits
+// gy o exp(cum) into head and remainder as pass 1 does; gdt and gA are
+// float32 throughout.  dG is summed over a head group in float32 and
+// rounded once, so gB and gC round once a group, and the rounding
+// depends on the split into groups (kernel._groups, from the SM count).
+// The kernel differentiates its own forward (C B^T in float32, W rounded
+// only as a product's operand), not the plain version's bfloat16 Gram
+// matrix.  P <= 64 and N <= 128: a block keeps a 64 x P and a 64 x N
+// accumulator.
 
 constexpr int kPMaxBwd = 64;
 constexpr int kNMaxBwd = 128;
+constexpr int kRing = 3;                // slots of a staged tile stream
+
+// i-tiles the column kernel holds at once: G^T and the group's dG^T as
+// float32 fragments, 16 KB each a tile.
+template <typename T>
+__host__ __device__ constexpr int ki() { return sizeof(T) == 2 ? 4 : 2; }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+// Starts copying the tile src[r * lds + k] (r < rows, k < COLS, COLS a
+// multiple of 16 bytes of Ts; zero at or past nrow or ncol) to
+// dst[r * ldd + k]: cp.async of 16 bytes a chunk when `vec` (src and lds
+// 16-byte aligned), plain loads and stores otherwise.  The caller
+// commits the group.
+template <int COLS, typename Ts>
+__device__ __forceinline__ void stage_async(Ts* dst, int ldd,
+                                            const Ts* __restrict__ src,
+                                            long long lds, int rows,
+                                            int nrow, int ncol, bool vec) {
+  constexpr int VEC = 16 / (int)sizeof(Ts), PER_ROW = COLS / VEC;
+  static_assert(COLS % VEC == 0, "whole 16-byte chunks");
+  for (int e = threadIdx.x; e < rows * PER_ROW; e += blockDim.x) {
+    const int r = e / PER_ROW, k = (e % PER_ROW) * VEC;
+    const int valid = r < nrow ? min(VEC, max(0, ncol - k)) : 0;
+    Ts* d = dst + r * ldd + k;
+    const Ts* s = src + r * lds + k;
+    if (vec)
+      cp_async16(d, valid > 0 ? s : src, valid * (int)sizeof(Ts));
+    else
+      *reinterpret_cast<uint4*>(d) = fetch16(s, valid, false);
+  }
+}
+
+// Starts copying n floats (n a multiple of 4, src 16-byte aligned; zero
+// at or past nvalid) from src to dst.  The caller commits the group.
+__device__ __forceinline__ void stage_floats_async(float* dst,
+                                                   const float* src, int n,
+                                                   int nvalid) {
+  for (int e = threadIdx.x * 4; e < n; e += blockDim.x * 4) {
+    const int valid = min(4, max(0, nvalid - e));
+    cp_async16(dst + e, valid > 0 ? src + e : src, valid * 4);
+  }
+}
+
+// The float4 slot of this thread's m16n8 fragment nt (< 4) of tile m in
+// an array of per-thread fragments of 8 warps: a warp reads 512
+// contiguous bytes.
+__device__ __forceinline__ int frag(int m, int nt) {
+  return ((m * 8 + (threadIdx.x >> 5)) * 4 + nt) * 32 + (threadIdx.x & 31);
+}
+
+// acc[nt] += A[16 x 8 KF] . B[8 KF x 8 NT] for the warp's 16 rows, with A
+// in registers as the m16n8 fragments warp_mma leaves (w[kt]: columns
+// 8 kt to 8 kt + 7) and B stored [k][n] with row length ldb.  bfloat16:
+// two fragments are one m16n8k16 A operand, rounded here; float32: each
+// element is fetched from the lane that holds it.
+template <typename T, int NT, int KF>
+__device__ __forceinline__ void warp_mma_frag(float (&acc)[NT][4],
+                                              const float (&w)[KF][4],
+                                              const T* __restrict__ Bs,
+                                              int ldb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if constexpr (sizeof(T) == 2) {
+    const int mi = lane >> 3, r = lane & 7;
+    auto pack = [](float lo, float hi) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+      return *reinterpret_cast<const uint32_t*>(&h);
+    };
+#pragma unroll
+    for (int kk = 0; kk < KF / 2; ++kk) {
+      const uint32_t a[4] = {pack(w[2 * kk][0], w[2 * kk][1]),
+                             pack(w[2 * kk][2], w[2 * kk][3]),
+                             pack(w[2 * kk + 1][0], w[2 * kk + 1][1]),
+                             pack(w[2 * kk + 1][2], w[2 * kk + 1][3])};
+#pragma unroll
+      for (int nt = 0; nt < NT; nt += 2) {
+        uint32_t b[4];
+        ldsm_x4_trans(
+            Bs + (16 * kk + (mi & 1) * 8 + r) * ldb + (nt + (mi >> 1)) * 8,
+            b[0], b[1], b[2], b[3]);
+        mma_bf16(acc[nt], a, b[0], b[1]);
+        mma_bf16(acc[nt + 1], a, b[2], b[3]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8 * KF; ++k) {
+      const int src = g * 4 + ((k & 7) >> 1);
+      const float a0 = __shfl_sync(kFull, w[k >> 3][k & 1], src);
+      const float a1 = __shfl_sync(kFull, w[k >> 3][2 + (k & 1)], src);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float b0 = Bs[k * ldb + nt * 8 + 2 * t];
+        const float b1 = Bs[k * ldb + nt * 8 + 2 * t + 1];
+        acc[nt][0] = fmaf(a0, b0, acc[nt][0]);
+        acc[nt][1] = fmaf(a0, b1, acc[nt][1]);
+        acc[nt][2] = fmaf(a1, b0, acc[nt][2]);
+        acc[nt][3] = fmaf(a1, b1, acc[nt][3]);
+      }
+    }
+  }
+}
 
 // The sum of v over the block (128 threads), in a fixed order; every
 // thread gets it.  `red` holds 4 floats of shared memory.
@@ -703,17 +852,39 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(kFull, v, 2);
 }
 
-// Pass 2'.  Grid (ceil(P*N/256/V), H, B).  rstates holds D_c for c > 0 on
-// entry and R_c (the gradient of the state leaving chunk c) on exit;
-// gl[(b nC + c) H + h][blockIdx.x] = this block's share of
-// exp(L_c) <R_c, S_c>.  g_state may be null (zero).
-template <int V>
+// Column sums of the warp's 16 x 32 tile: v[nt][u] is this thread's sum
+// over its two rows of column 8 nt + 2 t + u.  Three halving steps over
+// the lanes that share t, in a fixed order, leave in lane (g, t) the sum
+// over all 16 rows of column 8 (g >> 1) + 2 t + (g & 1).
+__device__ __forceinline__ float col_sums(const float (&v)[4][2]) {
+  const int lane = threadIdx.x & 31;
+  const bool b2 = lane & 16, b1 = lane & 8, b0 = lane & 4;
+  float s4[4], s2[2];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {         // n-tiles 0-1 or 2-3
+    const float lo = v[k >> 1][k & 1], hi = v[2 + (k >> 1)][k & 1];
+    s4[k] = (b2 ? hi : lo) + __shfl_xor_sync(kFull, b2 ? lo : hi, 16);
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    s2[k] = (b1 ? s4[k + 2] : s4[k]) +
+            __shfl_xor_sync(kFull, b1 ? s4[k] : s4[k + 2], 8);
+  return (b0 ? s2[1] : s2[0]) + __shfl_xor_sync(kFull, b0 ? s2[0] : s2[1], 4);
+}
+
+// Pass 2'.  Grid (ceil(P*N/256/V), H, B).  rstates holds D_c for c > 0;
+// rt and st get R_c (the gradient of the state leaving chunk c) and S_c
+// (the state entering it, from states) in T, and gl[(b nC + c) H +
+// h][blockIdx.x] this block's share of exp(L_c) <R_c, S_c> (float32).
+// g_state may be null (zero).
+template <typename T, int V>
 __global__ void __launch_bounds__(256)
-ssd_state_grad_kernel(float* __restrict__ rstates,
+ssd_state_grad_kernel(const float* __restrict__ rstates,
                       const float* __restrict__ states,
                       const float* __restrict__ cdecay,
-                      const float* __restrict__ g_state,
-                      float* __restrict__ gl, int H, int PN, int nC) {
+                      const float* __restrict__ g_state, T* __restrict__ rt,
+                      T* __restrict__ st, float* __restrict__ gl, int H,
+                      int PN, int nC) {
   __shared__ float red[8];
   const int e = (blockIdx.x * 256 + threadIdx.x) * V;
   const bool live = e < PN;
@@ -728,14 +899,28 @@ ssd_state_grad_kernel(float* __restrict__ rstates,
     const float d = expf(cdecay[bch]);
     float dot = 0.f;
     if (live) {
-      float* slot = rstates + bch * PN + e;
-      const float* sc = states + bch * PN + e;
+      const long long o = bch * PN + e;
+      float sv[V], rv[V], dc[V];
+      if constexpr (V == 4) {
+        widen<float>(*reinterpret_cast<const uint4*>(states + o), sv);
+        if (c > 0)
+          widen<float>(*reinterpret_cast<const uint4*>(rstates + o), dc);
+      } else {
+        sv[0] = states[o];
+        if (c > 0) dc[0] = rstates[o];
+      }
 #pragma unroll
       for (int v = 0; v < V; ++v) {
-        const float dc = c > 0 ? slot[v] : 0.f;
-        slot[v] = r[v];
-        dot = fmaf(r[v], sc[v], dot);
-        r[v] = fmaf(d, r[v], dc);
+        rv[v] = r[v];
+        dot = fmaf(r[v], sv[v], dot);
+        r[v] = fmaf(d, r[v], c > 0 ? dc[v] : 0.f);
+      }
+      if constexpr (V == 4) {
+        store_as<T, 4>(rt + o, rv);
+        store_as<T, 4>(st + o, sv);
+      } else {
+        rt[o] = from_f32<T>(rv[0]);
+        st[o] = from_f32<T>(sv[0]);
       }
     }
 #pragma unroll
@@ -752,8 +937,26 @@ ssd_state_grad_kernel(float* __restrict__ rstates,
   }
 }
 
+// Pass 3', cum.  Grid (H, B * nC).  Row (b nC + c) H + h of cum_out and
+// dts_out (Qa = Q rounded up to 4 floats): the inclusive cumsum of dt A
+// within the chunk (its last value past the chunk) and dt (0 past S).
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_cum_kernel(const float* __restrict__ dt, const float* __restrict__ A,
+                   float* __restrict__ cum_out, float* __restrict__ dts_out,
+                   int S, int H, int Q, int nC) {
+  __shared__ float dts[QMAX], cum[QMAX];
+  const int h = blockIdx.x, b = blockIdx.y / nC, c = blockIdx.y % nC;
+  const int s0 = c * Q, nv = min(Q, S - s0), Qa = (Q + 3) & ~3;
+  chunk_cumsum(dt + (long long)b * S * H + h, H, s0, nv, Q, A[h], dts, cum);
+  const long long row = ((long long)blockIdx.y * H + h) * Qa;
+  for (int j = threadIdx.x; j < Qa; j += kThreads) {
+    cum_out[row + j] = cum[min(j, Q - 1)];
+    dts_out[row + j] = j < Q ? dts[j] : 0.f;
+  }
+}
+
 // Leading dimensions of the backward's tiles: NC = 64 or 128 columns of
-// B, C and the states; 64 of x, gy, W and dG.
+// B, C and the states; 64 of x, gy and dG.
 template <typename T>
 __host__ __device__ constexpr int ldn(int NC) { return NC + pad<T>(); }
 template <typename T>
@@ -761,324 +964,542 @@ __host__ __device__ constexpr int ld64() { return kTile + pad<T>(); }
 
 template <typename T>
 __host__ __device__ constexpr size_t col_smem(int Q, int NC) {
-  return 2 * sizeof(float) * ((Q + 3) & ~3) +
-         sizeof(T) * kTile * (2 * ldn<T>(NC) + 4 * ld64<T>()) +
-         2 * sizeof(float) * kTile;
+  return sizeof(float) * (2 * ki<T>() * kTile * kTile + 2 * ((Q + 3) & ~3) +
+                          2 * kTile + 5 * ki<T>() * kTile) +
+         sizeof(T) * kTile * (2 * ldn<T>(NC) + (2 + kRing) * ld64<T>());
 }
 template <typename T>
-__host__ __device__ constexpr size_t row_smem(int Q, int NC) {
-  return 2 * sizeof(float) * ((Q + 3) & ~3) +
-         sizeof(T) * kTile * (2 * ldn<T>(NC) + 3 * ld64<T>()) +
-         2 * sizeof(float) * kTile;
+__host__ __device__ constexpr size_t bc_smem(int Q, int NC) {
+  return sizeof(float) * kRing *
+             (((Q + 3) & ~3) + (Q + kTile - 1) / kTile * kTile) +
+         sizeof(T) * kTile * ((1 + kRing) * ldn<T>(NC) + kRing * ld64<T>());
 }
 
 struct BwdArgs {
   const void *x, *Bm, *Cm, *gy;
-  const float *dt, *A, *states, *rstates;
+  const float *dt, *A;
+  const void *rt, *st;                  // R_c, S_c in T (B, nC, H, P, N)
+  const float *cum, *dts;               // (B, nC, H, Qa) float32
   void* gx;
+  void* dgs;      // (HG, B nC, nqt, nqt, 64, 64) T: the groups' dG^T tiles
   float *part_b, *part_c;               // (HG, B, S, N) float32
   float *rowp, *colp, *gdtd, *tloc;     // (B, S, H) float32
+  float* rowpart;                       // (nqt, B nC, H, 64 nqt) float32
+  float* gxacc;                         // (B, S, H, P) float32, Q > 64 ki()
   int B, S, H, P, N, Q, nC, hpg;
   Strides sd;                           // x, Bm, Cm as in the forward
   long long gyb, gys;
-  int vgy;
+  int vgy, vst;
 };
 
-// Pass 3', columns.  Grid (ceil(Q/64), HG, B * nC).
+constexpr int kColThreads = 256;        // 8 warps
+
+// Pass 3', columns.  Grid (B * nC, HG, ceil(Q/64)), so that the j-tiles
+// with the most i-tiles start first, and 8 warps: warp w holds
+// rows 16 (w % 4) to 16 (w % 4) + 15 of the j-tile and columns 32 (w / 4)
+// to 32 (w / 4) + 31 of each i-tile (and of N for the carry's x_j R); the
+// two column halves' partial sums of gx_j meet in shared memory at each
+// head's end.
 template <typename T, int NTN>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kColThreads, 1)
 ssd_bwd_col_kernel(BwdArgs a) {
-  constexpr int NC = NTN * 8;
+  constexpr int NC = NTN * 8, KI = ki<T>(), NH = NTN / 2;
   constexpr int LDN = ldn<T>(NC), LDP = ld64<T>();
   extern __shared__ float4 smem4[];
-  const int Qa = (a.Q + 3) & ~3;
-  float* dts = reinterpret_cast<float*>(smem4);
-  float* cum = dts + Qa;
-  T* bj = reinterpret_cast<T*>(cum + Qa);  // [j][n]: B_j
-  T* ci = bj + kTile * LDN;             // [p][n]: R_c, then [i][n]: C_i
-  T* xj = ci + kTile * LDN;             // [j][p]: x_j
-  T* gyi = xj + kTile * LDP;            // [i][p]: gy_i
-  T* wt = gyi + kTile * LDP;            // [j][i]: W^T
-  T* dgt = wt + kTile * LDP;            // [j][i]: dG^T
-  float* fi = reinterpret_cast<float*>(dgt + kTile * LDP);  // [i]
-  float* fj = fi + kTile;                                   // [j]
-  const int t = threadIdx.x, warp = t >> 5;
+  const int Q = a.Q, Qa = (Q + 3) & ~3;
+  float4* gf = smem4;                   // G^T fragments, KI tiles
+  float4* sdg = gf + KI * 1024;         // the group's sum of dG^T, likewise
+  float* cumb = reinterpret_cast<float*>(sdg + KI * 1024);  // [2][Qa]
+  float* dtsb = cumb + 2 * Qa;          // [2][64]: dt_j
+  float* red = dtsb + 2 * kTile;        // [strip][KI * 64]: row sums
+  float* fib = red + 4 * KI * kTile;    // [KI * 64]: exp(cum_i - cum_jr)
+  T* bj = reinterpret_cast<T*>(fib + KI * kTile);  // [j][n]: B_j
+  T* rb = bj + kTile * LDN;             // [p][n]: R_c; [i][n]: C_i for G
+  T* xb = rb + kTile * LDN;             // [2][j][p]: x_j
+  T* yb = xb + 2 * kTile * LDP;         // [kRing][i][p]: gy_i
+  const int t = threadIdx.x, warp = t >> 5, rw = warp & 3, ch = warp >> 2;
   const int lane = t & 31, g = lane >> 2, tq = lane & 3;
-  const int j0 = blockIdx.x * kTile;
-  const int b = blockIdx.z / a.nC, c = blockIdx.z % a.nC;
+  const int jt = blockIdx.z, j0 = jt * kTile, jl0 = rw * 16 + g;
+  const int c0 = ch * 32;               // the warp's first column
+  const long long bc = blockIdx.x, bnc = (long long)a.B * a.nC;
+  const int b = blockIdx.x / a.nC, c = blockIdx.x % a.nC;
   const int S = a.S, H = a.H, P = a.P, N = a.N;
-  const int s0 = c * a.Q, nv = min(a.Q, S - s0);
+  const int s0 = c * Q, nv = min(Q, S - s0);
   if (j0 >= nv) return;
+  const int ntile = (nv + kTile - 1) / kTile, nqt = (Q + kTile - 1) / kTile;
   const int Np = round16(N), Pp = round16(P);
-  const int h_lo = blockIdx.y * a.hpg, h_hi = min(H, h_lo + a.hpg);
+  const int kh = (Np / 16 + 1) / 2 * 16;  // B_j R^T's depth, half 0
+  const int k_lo = ch ? kh : 0, k_n = ch ? Np - kh : kh;
+  const int h_lo = blockIdx.y * a.hpg, nh = min(H, h_lo + a.hpg) - h_lo;
+  const int jr = min(j0 + kTile - 1, Q - 1);  // below every i off the diagonal
   const Strides& sd = a.sd;
-  auto copy_to = [](T* dst, int ld) {
-    return [dst, ld](int r, int k, uint4 u) {
-      *reinterpret_cast<uint4*>(dst + r * ld + k) = u;
-    };
-  };
-  stage((const T*)a.Bm + b * sd.bb + (long long)(s0 + j0) * sd.bs, sd.bs,
-        kTile, NC, nv - j0, N, sd.vb, copy_to(bj, LDN));
-  float accb[NTN][4] = {};              // gB_j over the group's heads
-  for (int h = h_lo; h < h_hi; ++h) {
-    __syncthreads();                    // last head's reads of smem done
-    chunk_cumsum(a.dt + (long long)b * S * H + h, H, s0, nv, a.Q, a.A[h],
-                 dts, cum);
-    const float L = cum[a.Q - 1];
-    stage((const T*)a.x + b * sd.xb + (long long)(s0 + j0) * sd.xs +
-              (long long)h * P, sd.xs, kTile, kTile, nv - j0, P, sd.vx,
-          copy_to(xj, LDP));
-    const float* rc = a.rstates + ((long long)blockIdx.z * H + h) * P * N;
-    stage(rc, N, kTile, NC, P, N, (N & 3) == 0, [&](int r, int k, uint4 u) {
-      float v[4];
-      widen<float>(u, v);
-      store_as<T, 4>(ci + r * LDN + k, v);
-    });
-    __syncthreads();
-    // the carry's terms: gx_j = u_j B_j R^T, V_j = x_j R, gB_j += u_j V_j
-    float u[2], ej[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int j = j0 + warp * 16 + g + 8 * hh;
-      ej[hh] = j < nv ? expf(L - cum[j]) : 0.f;
-      u[hh] = ej[hh] * (j < nv ? dts[j] : 0.f);
-    }
-    float accx[8][4] = {};
-    warp_mma<T, 8, false, false>(accx, bj + warp * 16 * LDN, LDN, ci, LDN,
-                                 Np);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) accx[nt][q] *= u[q >> 1];
-    float du[2] = {0.f, 0.f};
-    {
-      float accv[NTN][4] = {};
-      warp_mma<T, NTN, false, true>(accv, xj + warp * 16 * LDP, LDP, ci,
-                                    LDN, Pp);
-#pragma unroll
-      for (int nt = 0; nt < NTN; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int jl = warp * 16 + g + 8 * (q >> 1);
-          const int n = nt * 8 + 2 * tq + (q & 1);
-          du[q >> 1] += accv[nt][q] * to_f32(bj[jl * LDN + n]);
-          accb[nt][q] += u[q >> 1] * accv[nt][q];
-        }
-    }
-    float cge[2] = {0.f, 0.f};          // sum over i of dW G E
-    for (int i0 = j0; i0 < nv; i0 += kTile) {
-      __syncthreads();                  // ci, gyi, wt, dgt free
-      stage((const T*)a.Cm + b * sd.cb + (long long)(s0 + i0) * sd.cs, sd.cs,
-            kTile, NC, nv - i0, N, sd.vc, copy_to(ci, LDN));
-      stage((const T*)a.gy + b * a.gyb + (long long)(s0 + i0) * a.gys +
-                (long long)h * P, a.gys, kTile, kTile, nv - i0, P, a.vgy,
-            copy_to(gyi, LDP));
-      const bool diag = i0 == j0;
-      const int jr = j0 + kTile - 1;    // below every i when i0 > j0
-      if (!diag) {
-        if (t < kTile)
-          fi[t] = i0 + t < nv ? expf(cum[i0 + t] - cum[jr]) : 0.f;
-        else
-          fj[t - kTile] = expf(cum[jr] - cum[j0 + t - kTile]);
-      }
+  const T* xsrc = (const T*)a.x + b * sd.xb + (long long)(s0 + j0) * sd.xs;
+  const T* gysrc = (const T*)a.gy + b * a.gyb + (long long)s0 * a.gys;
+  stage_async<NC>(bj, LDN,
+                  (const T*)a.Bm + b * sd.bb + (long long)(s0 + j0) * sd.bs,
+                  sd.bs, kTile, nv - j0, N, sd.vb);
+  cp_async_commit();
+  float accb[NH][4] = {};               // gB_j's carry term over the group
+  for (int ip0 = jt; ip0 < ntile; ip0 += KI) {   // passes over the i-tiles
+    const int nk = min(KI, ntile - ip0), per = 1 + nk, n_items = nh * per;
+    const bool first = ip0 == jt, last = ip0 + KI >= ntile;
+    // G^T = B_j C_i^T of the pass's i-tiles, once for all the heads
+    for (int m = 0; m < nk; ++m) {
+      const int i0 = (ip0 + m) * kTile;
+      stage_async<NC>(rb, LDN,
+                      (const T*)a.Cm + b * sd.cb + (long long)(s0 + i0) * sd.cs,
+                      sd.cs, kTile, nv - i0, N, sd.vc);
+      cp_async_commit();
+      cp_async_wait<0>();
       __syncthreads();
-      float accg[8][4] = {}, accd[8][4] = {};
-      warp_mma<T, 8, false, false>(accg, bj + warp * 16 * LDN, LDN, ci, LDN,
-                                   Np);
-      warp_mma<T, 8, false, false>(accd, xj + warp * 16 * LDP, LDP, gyi,
-                                   LDP, Pp);
+      float acc[4][4] = {};
+      warp_mma<T, 4, false, false>(acc, bj + rw * 16 * LDN, LDN,
+                                   rb + c0 * LDN, LDN, Np);
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < 4; ++nt) {
+        gf[frag(m, nt)] = make_float4(acc[nt][0], acc[nt][1], acc[nt][2],
+                                      acc[nt][3]);
+        sdg[frag(m, nt)] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      __syncthreads();                  // rb free
+    }
+    // The tile stream: per head an item of its x_j, cum, dt (and, in the
+    // first pass, R_c), then one of gy_i per i-tile.  Item n + 2 is
+    // started while item n is used.
+    auto issue = [&](int n) {
+      if (n < n_items) {
+        const int k = n / per, m = n % per - 1, h = h_lo + k;
+        const long long row = bc * H + h;
+        if (m < 0) {
+          stage_async<kTile>(xb + (k & 1) * kTile * LDP, LDP,
+                             xsrc + (long long)h * P, sd.xs, kTile, nv - j0,
+                             P, sd.vx);
+          stage_floats_async(cumb + (k & 1) * Qa, a.cum + row * Qa, Qa, Qa);
+          stage_floats_async(dtsb + (k & 1) * kTile, a.dts + row * Qa + j0,
+                             kTile, Qa - j0);
+          if (first)
+            stage_async<NC>(rb, LDN, (const T*)a.rt + row * P * N, N, kTile,
+                            P, N, a.vst);
+        } else {
+          const int i0 = (ip0 + m) * kTile;
+          stage_async<kTile>(yb + (n - k - 1) % kRing * kTile * LDP, LDP,
+                             gysrc + (long long)i0 * a.gys + (long long)h * P,
+                             a.gys, kTile, nv - i0, P, a.vgy);
+        }
+      }
+      cp_async_commit();                // an empty group past the end
+    };
+    issue(0);
+    issue(1);
+    float accx[8][4];                   // gx_j of the head: this half's part
+    float du[2], cge[2], u[2], ej[2], dtj[2], fj[2], cj[2];
+    for (int n = 0; n < n_items; ++n) {
+      cp_async_wait<1>();               // item n has landed
+      __syncthreads();                  // ... for every thread; n - 1 done
+      const int k = n / per, m = n % per - 1, h = h_lo + k;
+      // with one i-tile a pass, item n + 2 is the next head's R_c, which
+      // lands where this item's R_c is read: start it after the reads
+      const bool defer = first && m < 0 && nk == 1;
+      if (!defer) issue(n + 2);
+      const float* cum = cumb + (k & 1) * Qa;
+      const T* xj = xb + (k & 1) * kTile * LDP;
+      if (m < 0) {                      // the head's start
+        const float L = cum[Q - 1], cr = cum[jr];
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
-          const int jl = warp * 16 + g + 8 * hh, j = j0 + jl;
-          float w[2], dg[2];
+          const int jl = jl0 + 8 * hh, j = j0 + jl;
+          cj[hh] = j < nv ? cum[j] : 0.f;
+          dtj[hh] = dtsb[(k & 1) * kTile + jl];
+          ej[hh] = j < nv ? expf(L - cj[hh]) : 0.f;
+          fj[hh] = j < nv ? expf(cr - cj[hh]) : 0.f;
+          u[hh] = ej[hh] * dtj[hh];
+          du[hh] = cge[hh] = 0.f;
+        }
+        // E's factor of each i below the diagonal tile, for this head
+        for (int e = t; e < nk * kTile; e += kColThreads) {
+          const int i = ip0 * kTile + e;
+          fib[e] = i > jr && i < nv ? expf(cum[i] - cr) : 0.f;
+        }
+        if (first) {
+          // the carry's terms: gx_j = u_j B_j R^T (each half over half of
+          // N), V_j = x_j R (each half its half of N), gB_j += u_j V_j
 #pragma unroll
-          for (int v = 0; v < 2; ++v) {
-            const int il = nt * 8 + 2 * tq + v, i = i0 + il;
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) accx[nt][q] = 0.f;
+          warp_mma<T, 8, false, false>(accx, bj + rw * 16 * LDN + k_lo, LDN,
+                                       rb + k_lo, LDN, k_n);
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) accx[nt][q] *= u[q >> 1];
+          float accv[NH][4] = {};
+          warp_mma<T, NH, false, true>(accv, xj + rw * 16 * LDP, LDP,
+                                       rb + ch * NH * 8, LDN, Pp);
+#pragma unroll
+          for (int nt = 0; nt < NH; ++nt)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int jl = jl0 + 8 * (q >> 1);
+              const int nn = ch * NH * 8 + nt * 8 + 2 * tq + (q & 1);
+              du[q >> 1] += accv[nt][q] * to_f32(bj[jl * LDN + nn]);
+              accb[nt][q] += u[q >> 1] * accv[nt][q];
+            }
+        } else {                        // gx_j of the earlier passes
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int j = j0 + jl0 + 8 * hh;
+            const float* src =
+                a.gxacc + (((long long)b * S + s0 + j) * H + h) * P;
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+              for (int v = 0; v < 2; ++v) {
+                const int p = nt * 8 + 2 * tq + v;
+                accx[nt][2 * hh + v] =
+                    nt / 4 == ch && j < nv && p < P ? src[p] : 0.f;
+              }
+          }
+        }
+      } else {                          // the pair (i-tile ip0 + m, j)
+        const int it = ip0 + m, i0 = it * kTile;
+        const T* gyi = yb + (n - k - 1) % kRing * kTile * LDP;
+        const bool diag = it == jt;
+        float accd[4][4] = {};          // dW^T = x_j gy_i^T
+        warp_mma<T, 4, false, false>(accd, xj + rw * 16 * LDP, LDP,
+                                     gyi + c0 * LDP, LDP, Pp);
+        // E, G E and W^T = G E dt_j need no dW: formed while its product
+        // runs
+        float ed[4][4], gE[4][4], w[4][4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const float4 g4 = gf[frag(m, nt)];
+          const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+          const float2 fi = *reinterpret_cast<const float2*>(
+              fib + m * kTile + c0 + nt * 8 + 2 * tq);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int hh = q >> 1, v = q & 1;
+            const int i = i0 + c0 + nt * 8 + 2 * tq + v;
+            const int j = j0 + jl0 + 8 * hh;
             float e;
             if (diag)
-              e = j <= i && i < nv ? expf(cum[i] - cum[j]) : 0.f;
+              e = j <= i && i < nv ? expf(cum[i] - cj[hh]) : 0.f;
             else
-              e = fi[il] * fj[jl];
-            const float gv = accg[nt][2 * hh + v], dw = accd[nt][2 * hh + v];
-            const float dtj = j < nv ? dts[j] : 0.f;
-            w[v] = gv * e * dtj;
-            dg[v] = dw * e * dtj;
-            cge[hh] += dw * gv * e;
+              e = (v ? fi.y : fi.x) * fj[hh];
+            ed[nt][q] = e * dtj[hh];
+            gE[nt][q] = gv[q] * e;
+            w[nt][q] = gv[q] * ed[nt][q];
           }
-          store2<T>(wt + jl * LDP + nt * 8 + 2 * tq, w[0], w[1]);
-          store2<T>(dgt + jl * LDP + nt * 8 + 2 * tq, dg[0], dg[1]);
         }
-      __syncwarp();
-      warp_mma<T, 8, false, true>(accx, wt + warp * 16 * LDP, LDP, gyi, LDP,
-                                  kTile);
-      warp_mma<T, NTN, false, true>(accb, dgt + warp * 16 * LDP, LDP, ci,
-                                    LDN, kTile);
-    }
-    // this head's gx and per-position sums
+        float rs[4][2];                 // dW G E dt_j over this thread's j
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int j = j0 + warp * 16 + g + 8 * hh;
-      const float ge = quad_sum(cge[hh]), d = quad_sum(du[hh]);
-      if (j < nv && tq == 0) {
-        const long long o = ((long long)b * S + s0 + j) * H + h;
-        const float tl = d * u[hh];
-        a.colp[o] = -dts[j] * ge - tl;
-        a.gdtd[o] = ge + d * ej[hh];
-        a.tloc[o] = tl;
+        for (int nt = 0; nt < 4; ++nt) {
+          const float4 s4 = sdg[frag(m, nt)];
+          float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+          rs[nt][0] = rs[nt][1] = 0.f;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int hh = q >> 1, v = q & 1;
+            const float dw = accd[nt][q], mv = dw * gE[nt][q];
+            sv[q] += dw * ed[nt][q];    // dG^T into the group's sum
+            cge[hh] += mv;
+            rs[nt][v] += mv * dtj[hh];
+          }
+          sdg[frag(m, nt)] = make_float4(sv[0], sv[1], sv[2], sv[3]);
+        }
+        warp_mma_frag<T, 8, 4>(accx, w, gyi + c0 * LDP, LDP);
+        red[rw * KI * kTile + m * kTile + c0 + (g >> 1) * 8 + 2 * tq +
+            (g & 1)] = col_sums(rs);
       }
-      if (j < nv) {
-        T* gxr = (T*)a.gx + (((long long)b * S + s0 + j) * H + h) * P;
+      if (defer) {
+        __syncthreads();                // every warp is done with R_c
+        issue(n + 2);
+      }
+      if (m == nk - 1) {                // the head's end
+        // half 1's partials of gx (p < 32) and of the row's sums go through
+        // the gy slot no item uses now (items n + 1, n + 2 are in flight)
+        float* xch = reinterpret_cast<float*>(
+            yb + (n - k + 1) % kRing * kTile * LDP);
+        float4* xch4 = reinterpret_cast<float4*>(xch);
+        float* xr = xch + 2048;         // [row][2]: cge, du
+        float ge[2], d[2];
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int p = nt * 8 + 2 * tq;
-          if (p + 1 < P && (P & 1) == 0) {
-            store2<T>(gxr + p, accx[nt][2 * hh], accx[nt][2 * hh + 1]);
-          } else {
-            if (p < P) gxr[p] = from_f32<T>(accx[nt][2 * hh]);
-            if (p + 1 < P) gxr[p + 1] = from_f32<T>(accx[nt][2 * hh + 1]);
-          }
+        for (int hh = 0; hh < 2; ++hh) {
+          ge[hh] = quad_sum(cge[hh]);
+          d[hh] = quad_sum(du[hh]);
         }
+        if (ch) {
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            xch4[(rw * 4 + nt) * 32 + lane] = make_float4(
+                accx[nt][0], accx[nt][1], accx[nt][2], accx[nt][3]);
+          if (tq == 0)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              xr[(jl0 + 8 * hh) * 2] = ge[hh];
+              xr[(jl0 + 8 * hh) * 2 + 1] = d[hh];
+            }
+        }
+        __syncthreads();                // red and half 1's partials
+        const long long rrow =
+            (((long long)jt * bnc + bc) * H + h) * (nqt * kTile);
+        constexpr int W = KI * kTile;
+        for (int e = t; e < nk * kTile; e += kColThreads) {
+          const int i = ip0 * kTile + e;
+          if (i < nv)
+            a.rowpart[rrow + i] =
+                (red[e] + red[W + e]) + (red[2 * W + e] + red[3 * W + e]);
+        }
+        auto put_gx = [&](int nt0) {    // n-tiles nt0 .. nt0 + 3 of gx_j
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int j = j0 + jl0 + 8 * hh;
+            if (j >= nv) continue;
+            const long long o = ((long long)b * S + s0 + j) * H + h;
+            if (last) {
+              T* gxr = (T*)a.gx + o * P;
+#pragma unroll
+              for (int nt = nt0; nt < nt0 + 4; ++nt) {
+                const int p = nt * 8 + 2 * tq;
+                if (p + 1 < P && (P & 1) == 0) {
+                  store2<T>(gxr + p, accx[nt][2 * hh], accx[nt][2 * hh + 1]);
+                } else {
+                  if (p < P) gxr[p] = from_f32<T>(accx[nt][2 * hh]);
+                  if (p + 1 < P)
+                    gxr[p + 1] = from_f32<T>(accx[nt][2 * hh + 1]);
+                }
+              }
+            } else {
+              float* acc = a.gxacc + o * P;
+#pragma unroll
+              for (int nt = nt0; nt < nt0 + 4; ++nt)
+#pragma unroll
+                for (int v = 0; v < 2; ++v) {
+                  const int p = nt * 8 + 2 * tq + v;
+                  if (p < P) acc[p] = accx[nt][2 * hh + v];
+                }
+            }
+          }
+        };
+        if (!ch) {
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const float4 o4 = xch4[(rw * 4 + nt) * 32 + lane];
+            accx[nt][0] += o4.x;
+            accx[nt][1] += o4.y;
+            accx[nt][2] += o4.z;
+            accx[nt][3] += o4.w;
+          }
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int jl = jl0 + 8 * hh, j = j0 + jl;
+            const float gs = ge[hh] + xr[jl * 2], ds = d[hh] + xr[jl * 2 + 1];
+            if (j >= nv || tq) continue;
+            const long long o = ((long long)b * S + s0 + j) * H + h;
+            if (first) {
+              const float tl = ds * u[hh];
+              a.colp[o] = -dtj[hh] * gs - tl;
+              a.gdtd[o] = gs + ds * ej[hh];
+              a.tloc[o] = tl;
+            } else {
+              a.colp[o] -= dtj[hh] * gs;
+              a.gdtd[o] += gs;
+            }
+          }
+          put_gx(0);
+#pragma unroll
+          for (int nt = 4; nt < 8; ++nt)  // half 0's partials of p >= 32
+            xch4[(rw * 4 + nt - 4) * 32 + lane] = make_float4(
+                accx[nt][0], accx[nt][1], accx[nt][2], accx[nt][3]);
+        }
+        __syncthreads();
+        if (ch) {
+#pragma unroll
+          for (int nt = 4; nt < 8; ++nt) {
+            const float4 o4 = xch4[(rw * 4 + nt - 4) * 32 + lane];
+            accx[nt][0] += o4.x;
+            accx[nt][1] += o4.y;
+            accx[nt][2] += o4.z;
+            accx[nt][3] += o4.w;
+          }
+          put_gx(4);
+        }
+      }
+    }
+    // the group's dG^T of the pass's pairs, rounded once, [j][i] a tile
+#pragma unroll 1
+    for (int m = 0; m < nk; ++m) {
+      T* dst = (T*)a.dgs +
+               ((((long long)blockIdx.y * bnc + bc) * nqt + jt) * nqt +
+                ip0 + m) * (kTile * kTile);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float4 s4 = sdg[frag(m, nt)];
+        const int col = c0 + nt * 8 + 2 * tq;
+        store2<T>(dst + jl0 * kTile + col, s4.x, s4.y);
+        store2<T>(dst + (jl0 + 8) * kTile + col, s4.z, s4.w);
       }
     }
   }
   float* pb = a.part_b + (((long long)blockIdx.y * a.B + b) * S + s0) * N;
 #pragma unroll
-  for (int nt = 0; nt < NTN; ++nt)
+  for (int nt = 0; nt < NH; ++nt)
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const int j = j0 + warp * 16 + g + 8 * (q >> 1);
-      const int n = nt * 8 + 2 * tq + (q & 1);
+      const int j = j0 + jl0 + 8 * (q >> 1);
+      const int n = ch * NH * 8 + nt * 8 + 2 * tq + (q & 1);
       if (j < nv && n < N) pb[(long long)j * N + n] = accb[nt][q];
     }
 }
 
-// Pass 3', rows.  Grid (ceil(Q/64), HG, B * nC).
+// Pass 3', gB and gC.  Grid (ceil(Q/64), HG, B * nC): a block per (64
+// positions t, head group, batch x chunk), t its rows.
 template <typename T, int NTN>
 __global__ void __launch_bounds__(kThreads)
-ssd_bwd_row_kernel(BwdArgs a) {
+ssd_bwd_bc_kernel(BwdArgs a) {
   constexpr int NC = NTN * 8;
   constexpr int LDN = ldn<T>(NC), LDP = ld64<T>();
   extern __shared__ float4 smem4[];
-  const int Qa = (a.Q + 3) & ~3;
-  float* dts = reinterpret_cast<float*>(smem4);
-  float* cum = dts + Qa;
-  T* ci = reinterpret_cast<T*>(cum + Qa);  // [i][n]: C_i
-  T* bj = ci + kTile * LDN;             // [p][n]: S_c, then [j][n]: B_j
-  T* gyi = bj + kTile * LDN;            // [i][p]: gy_i
-  T* xj = gyi + kTile * LDP;            // [j][p]: x_j
-  T* dg = xj + kTile * LDP;             // [i][j]: dG
-  float* fi = reinterpret_cast<float*>(dg + kTile * LDP);  // [i]
-  float* fj = fi + kTile;                                  // [j]
+  const int Q = a.Q, Qa = (Q + 3) & ~3, nqt = (Q + kTile - 1) / kTile;
+  const int Q64 = nqt * kTile;
+  float* cumr = reinterpret_cast<float*>(smem4);   // [kRing][Qa]: cum
+  float* rpr = cumr + kRing * Qa;       // [kRing][Q64]: row-sum partials
+  T* ct = reinterpret_cast<T*>(rpr + kRing * Q64);  // [i][n]: C_t
+  T* big = ct + kTile * LDN;            // [kRing][64][LDN]: C_i, B_j, S_c
+  T* small = big + kRing * kTile * LDN;  // [kRing][64][LDP]: dG^T, gy_t
   const int t = threadIdx.x, warp = t >> 5;
   const int lane = t & 31, g = lane >> 2, tq = lane & 3;
-  const int i0 = blockIdx.x * kTile;
+  const int tt = blockIdx.x, i0 = tt * kTile, il0 = warp * 16 + g;
+  const long long bc = blockIdx.z;
   const int b = blockIdx.z / a.nC, c = blockIdx.z % a.nC;
   const int S = a.S, H = a.H, P = a.P, N = a.N;
-  const int s0 = c * a.Q, nv = min(a.Q, S - s0);
+  const int s0 = c * Q, nv = min(Q, S - s0);
   if (i0 >= nv) return;
-  const int Np = round16(N), Pp = round16(P);
-  const int h_lo = blockIdx.y * a.hpg, h_hi = min(H, h_lo + a.hpg);
+  const int ntile = (nv + kTile - 1) / kTile, Pp = round16(P);
+  const int h_lo = blockIdx.y * a.hpg, nh = min(H, h_lo + a.hpg) - h_lo;
+  const int nbi = ntile - tt, nci = tt + 1, n_items = nbi + nci + nh;
   const Strides& sd = a.sd;
-  auto copy_to = [](T* dst, int ld) {
-    return [dst, ld](int r, int k, uint4 u) {
-      *reinterpret_cast<uint4*>(dst + r * ld + k) = u;
-    };
-  };
-  stage((const T*)a.Cm + b * sd.cb + (long long)(s0 + i0) * sd.cs, sd.cs,
-        kTile, NC, nv - i0, N, sd.vc, copy_to(ci, LDN));
-  float accc[NTN][4] = {};              // gC_i over the group's heads
-  for (int h = h_lo; h < h_hi; ++h) {
-    __syncthreads();
-    chunk_cumsum(a.dt + (long long)b * S * H + h, H, s0, nv, a.Q, a.A[h],
-                 dts, cum);
-    stage((const T*)a.gy + b * a.gyb + (long long)(s0 + i0) * a.gys +
-              (long long)h * P, a.gys, kTile, kTile, nv - i0, P, a.vgy,
-          copy_to(gyi, LDP));
-    if (c > 0) {
-      const float* st = a.states + ((long long)blockIdx.z * H + h) * P * N;
-      stage(st, N, kTile, NC, P, N, (N & 3) == 0, [&](int r, int k, uint4 u) {
-        float v[4];
-        widen<float>(u, v);
-        store_as<T, 4>(bj + r * LDN + k, v);
-      });
+  const T* dg = (const T*)a.dgs + ((long long)blockIdx.y * gridDim.z + bc) *
+                                      nqt * nqt * (kTile * kTile);
+  const T* cm = (const T*)a.Cm + b * sd.cb + (long long)s0 * sd.cs;
+  const T* bm = (const T*)a.Bm + b * sd.bb + (long long)s0 * sd.bs;
+  stage_async<NC>(ct, LDN, cm + (long long)i0 * sd.cs, sd.cs, kTile,
+                  nv - i0, N, sd.vc);
+  // The tile stream: (dG^T of (t, i), C_i) for i >= t, (dG^T of (j, t),
+  // B_j) for j <= t, then per head (the row-sum partials, cum, gy_t,
+  // S_c).  Item n + 2 is started while item n is used.
+  auto issue = [&](int n) {
+    const int s = n % kRing;
+    T* bs = big + s * kTile * LDN;
+    T* ss = small + s * kTile * LDP;
+    if (n < nbi) {
+      const int it = tt + n;
+      stage_async<kTile>(ss, LDP,
+                         dg + ((long long)tt * nqt + it) * (kTile * kTile),
+                         kTile, kTile, kTile, kTile, true);
+      if (it != tt)
+        stage_async<NC>(bs, LDN, cm + (long long)it * kTile * sd.cs, sd.cs,
+                        kTile, nv - it * kTile, N, sd.vc);
+    } else if (n < nbi + nci) {
+      const int jt = n - nbi;
+      stage_async<kTile>(ss, LDP,
+                         dg + ((long long)jt * nqt + tt) * (kTile * kTile),
+                         kTile, kTile, kTile, kTile, true);
+      stage_async<NC>(bs, LDN, bm + (long long)jt * kTile * sd.bs, sd.bs,
+                      kTile, nv - jt * kTile, N, sd.vb);
+    } else if (n < n_items) {
+      const int h = h_lo + n - nbi - nci;
+      const long long row = bc * H + h;
+      for (int jt = 0; jt <= tt; ++jt)
+        stage_floats_async(rpr + s * Q64 + jt * kTile,
+                           a.rowpart +
+                               (((long long)jt * gridDim.z + bc) * H + h) *
+                                   Q64 + i0,
+                           kTile, kTile);
+      if (c > 0) {                      // chunk 0 enters with zero state
+        stage_floats_async(cumr + s * Qa, a.cum + row * Qa, Qa, Qa);
+        stage_async<kTile>(ss, LDP,
+                           (const T*)a.gy + b * a.gyb +
+                               (long long)(s0 + i0) * a.gys + (long long)h * P,
+                           a.gys, kTile, nv - i0, P, a.vgy);
+        stage_async<NC>(bs, LDN, (const T*)a.st + row * P * N, N, kTile, P,
+                        N, a.vst);
+      }
     }
+    cp_async_commit();                  // an empty group past the end
+  };
+  issue(0);
+  issue(1);
+  int n = 0;
+  float accb[NTN][4] = {};              // gB_t's pair terms
+  for (; n < nbi; ++n) {
+    cp_async_wait<1>();
     __syncthreads();
-    float rowm[2] = {0.f, 0.f};         // sum over j of dW G E dt_j, then
-    if (c > 0) {                        // + exp(cum_i) C_i . (gy_i S_c)
+    issue(n + 2);
+    const int s = n % kRing;
+    warp_mma<T, NTN, false, true>(accb, small + (s * kTile + warp * 16) * LDP,
+                                  LDP,
+                                  n == 0 ? ct : big + s * kTile * LDN, LDN,
+                                  kTile);
+  }
+  // the group's gB: the column kernel's carry term, then these
+  float* pb = a.part_b + (((long long)blockIdx.y * a.B + b) * S + s0) * N;
+#pragma unroll
+  for (int nt = 0; nt < NTN; ++nt)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = i0 + il0 + 8 * (q >> 1);
+      const int nn = nt * 8 + 2 * tq + (q & 1);
+      if (i < nv && nn < N) pb[(long long)i * N + nn] += accb[nt][q];
+    }
+  float accc[NTN][4] = {};              // gC_t
+  for (; n < nbi + nci; ++n) {
+    cp_async_wait<1>();
+    __syncthreads();
+    issue(n + 2);
+    const int s = n % kRing;
+    warp_mma<T, NTN, true, true>(accc, small + s * kTile * LDP + warp * 16,
+                                 LDP, big + s * kTile * LDN, LDN, kTile);
+  }
+  for (; n < n_items; ++n) {
+    cp_async_wait<1>();
+    __syncthreads();
+    issue(n + 2);
+    const int s = n % kRing, h = h_lo + n - nbi - nci;
+    float rowm[2] = {0.f, 0.f};         // exp(cum_t) C_t . (gy_t S_c)
+    if (c > 0) {
       float accz[NTN][4] = {};
-      warp_mma<T, NTN, false, true>(accz, gyi + warp * 16 * LDP, LDP, bj,
-                                    LDN, Pp);
+      warp_mma<T, NTN, false, true>(accz,
+                                    small + (s * kTile + warp * 16) * LDP,
+                                    LDP, big + s * kTile * LDN, LDN, Pp);
+      const float* cum = cumr + s * Qa;
       float ei[2];
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        const int i = i0 + warp * 16 + g + 8 * hh;
+        const int i = i0 + il0 + 8 * hh;
         ei[hh] = i < nv ? expf(cum[i]) : 0.f;
       }
 #pragma unroll
       for (int nt = 0; nt < NTN; ++nt)
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const int il = warp * 16 + g + 8 * (q >> 1);
-          const int n = nt * 8 + 2 * tq + (q & 1);
+          const int il = il0 + 8 * (q >> 1);
+          const int nn = nt * 8 + 2 * tq + (q & 1);
           const float z = ei[q >> 1] * accz[nt][q];
           accc[nt][q] += z;
-          rowm[q >> 1] += z * to_f32(ci[il * LDN + n]);
+          rowm[q >> 1] += z * to_f32(ct[il * LDN + nn]);
         }
-    }
-    for (int j0 = 0; j0 <= i0; j0 += kTile) {
-      __syncthreads();                  // bj, xj, dg free
-      stage((const T*)a.Bm + b * sd.bb + (long long)(s0 + j0) * sd.bs, sd.bs,
-            kTile, NC, nv - j0, N, sd.vb, copy_to(bj, LDN));
-      stage((const T*)a.x + b * sd.xb + (long long)(s0 + j0) * sd.xs +
-                (long long)h * P, sd.xs, kTile, kTile, nv - j0, P, sd.vx,
-            copy_to(xj, LDP));
-      const bool diag = i0 == j0;
-      const int jr = j0 + kTile - 1;    // below every i when j0 < i0
-      if (!diag) {
-        if (t < kTile)
-          fi[t] = i0 + t < nv ? expf(cum[i0 + t] - cum[jr]) : 0.f;
-        else
-          fj[t - kTile] = expf(cum[jr] - cum[j0 + t - kTile]);
-      }
-      __syncthreads();
-      float accg[8][4] = {}, accd[8][4] = {};
-      warp_mma<T, 8, false, false>(accg, ci + warp * 16 * LDN, LDN, bj, LDN,
-                                   Np);
-      warp_mma<T, 8, false, false>(accd, gyi + warp * 16 * LDP, LDP, xj,
-                                   LDP, Pp);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int il = warp * 16 + g + 8 * hh, i = i0 + il;
-          float d2[2];
-#pragma unroll
-          for (int v = 0; v < 2; ++v) {
-            const int jl = nt * 8 + 2 * tq + v, j = j0 + jl;
-            float e;
-            if (diag)
-              e = j <= i && i < nv ? expf(cum[i] - cum[j]) : 0.f;
-            else
-              e = fi[il] * fj[jl];
-            const float dtj = j < nv ? dts[j] : 0.f;
-            const float gv = accg[nt][2 * hh + v], dw = accd[nt][2 * hh + v];
-            d2[v] = dw * e * dtj;
-            rowm[hh] += dw * gv * e * dtj;
-          }
-          store2<T>(dg + il * LDP + nt * 8 + 2 * tq, d2[0], d2[1]);
-        }
-      __syncwarp();
-      warp_mma<T, NTN, false, true>(accc, dg + warp * 16 * LDP, LDP, bj, LDN,
-                                    kTile);
     }
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const int i = i0 + warp * 16 + g + 8 * hh;
+      const int il = il0 + 8 * hh, i = i0 + il;
       const float rm = quad_sum(rowm[hh]);
-      if (i < nv && tq == 0)
-        a.rowp[((long long)b * S + s0 + i) * H + h] = rm;
+      if (i < nv && tq == 0) {
+        float sum = 0.f;                // the column kernel's, j-tile order
+        for (int jt = 0; jt <= tt; ++jt) sum += rpr[s * Q64 + jt * kTile + il];
+        a.rowp[((long long)b * S + s0 + i) * H + h] = sum + rm;
+      }
     }
   }
   float* pc = a.part_c + (((long long)blockIdx.y * a.B + b) * S + s0) * N;
@@ -1086,12 +1507,11 @@ ssd_bwd_row_kernel(BwdArgs a) {
   for (int nt = 0; nt < NTN; ++nt)
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const int i = i0 + warp * 16 + g + 8 * (q >> 1);
-      const int n = nt * 8 + 2 * tq + (q & 1);
-      if (i < nv && n < N) pc[(long long)i * N + n] = accc[nt][q];
+      const int i = i0 + il0 + 8 * (q >> 1);
+      const int nn = nt * 8 + 2 * tq + (q & 1);
+      if (i < nv && nn < N) pc[(long long)i * N + nn] = accc[nt][q];
     }
 }
-
 // Pass 4'.  Grid (H, B * nC).  The gradient of cum at position k of the
 // chunk is rowp_k + colp_k, plus, at the last position, sum_j tloc_j and
 // the carry's exp(L) <R, S> (gl, nb shares); rcs_k is its sum over the
@@ -1181,37 +1601,54 @@ __global__ void ssd_bwd_sum_a_kernel(const float* __restrict__ ga_part,
   gA[h] = s;
 }
 
-// The backward's scratch, in floats, carved in this order (each part a
-// multiple of 4 floats, so 16-byte aligned).
+// The backward's scratch, in floats (each part a multiple of 4, so 16-byte
+// aligned), carved in this order: a region that holds the chunk states
+// and their gradients (passes 1-2') and then pass 3' on (cum, dt, the
+// position sums, the row-sum partials, the dG^T tiles, the head groups'
+// gB and gC, gx between passes); R_c and S_c in T; the rest.
 struct BwdScratch {
-  long long states, cdecay, fstate, rstates, gl, pos4, ga, parts;
+  long long states, region, tcopy, cdecay, fstate, gl, ga;
+  long long cum, pos4, rowpart, dgs, parts, gxacc;
   int nb, V;
 };
 
 __host__ inline long long up4(long long n) { return (n + 3) & ~3ll; }
 
 __host__ inline BwdScratch bwd_scratch(int B, int S, int H, int P, int N,
-                                       int Q, int HG) {
+                                       int Q, int HG, int esize) {
   BwdScratch w;
   const long long nC = (S + Q - 1) / Q, PN = (long long)P * N;
+  const long long bnc = B * nC, nqt = (Q + kTile - 1) / kTile;
+  const int KI = esize == 2 ? ki<__nv_bfloat16>() : ki<float>();
   w.V = PN % 4 == 0 ? 4 : 1;
   w.nb = (int)((PN / w.V + 255) / 256);
-  w.states = up4(B * nC * H * PN);
-  w.cdecay = up4(B * nC * H);
-  w.fstate = up4((long long)B * H * PN);
-  w.rstates = w.states;
-  w.gl = up4(B * nC * H * w.nb);
+  w.states = up4(bnc * H * PN);
+  w.tcopy = up4((bnc * H * PN * esize + 3) / 4);
+  w.cum = bnc * H * ((Q + 3) & ~3);
   w.pos4 = 4 * up4((long long)B * S * H);
-  w.ga = up4(B * nC * H);
+  w.rowpart = nqt * bnc * H * nqt * kTile;
+  w.dgs = up4(HG * bnc * nqt * nqt * kTile * kTile * esize / 4);
   w.parts = 2 * up4((long long)HG * B * S * N);
+  w.gxacc = nqt > KI ? up4((long long)B * S * H * P) : 0;
+  const long long post =
+      2 * w.cum + w.pos4 + w.rowpart + w.dgs + w.parts + w.gxacc;
+  w.region = 2 * w.states > post ? 2 * w.states : post;
+  w.cdecay = up4(bnc * H);
+  w.fstate = up4((long long)B * H * PN);
+  w.gl = up4(bnc * H * w.nb);
+  w.ga = up4(bnc * H);
   return w;
+}
+
+__host__ inline long long bwd_floats(const BwdScratch& w) {
+  return w.region + 2 * w.tcopy + w.cdecay + w.fstate + w.gl + w.ga;
 }
 
 template <typename T, int NTN>
 cudaError_t bwd_opt_in() {
   constexpr size_t kCol = col_smem<T>(QMAX, NTN * 8);
-  constexpr size_t kRow = row_smem<T>(QMAX, NTN * 8);
-  static_assert(kCol <= 227 * 1024 && kRow <= 227 * 1024,
+  constexpr size_t kBc = bc_smem<T>(QMAX, NTN * 8);
+  static_assert(kCol <= 227 * 1024 && kBc <= 227 * 1024,
                 "backward tiles exceed an SM");
   static bool done[64];
   int dev = 0;
@@ -1221,9 +1658,9 @@ cudaError_t bwd_opt_in() {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)kCol);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_bwd_row_kernel<T, NTN>,
+    err = cudaFuncSetAttribute(ssd_bwd_bc_kernel<T, NTN>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kRow);
+                               (int)kBc);
   if (err == cudaSuccess && dev < 64) done[dev] = true;
   return err;
 }
@@ -1236,25 +1673,38 @@ int launch_bwd(const BwdArgs& a0, float* ws, const float* g_state,
   const int nC = a0.nC, PN = P * N;
   const int ptiles = (P + kTile - 1) / kTile;
   const int nqt = (Q + kTile - 1) / kTile;
-  const BwdScratch w = bwd_scratch(B, S, H, P, N, Q, HG);
-  float* states = ws;
-  float* cdecay = states + w.states;
-  float* fstate = cdecay + w.cdecay;
-  float* rstates = fstate + w.fstate;
-  float* gl = rstates + w.rstates;
-  float* pos = gl + w.gl;
+  const BwdScratch w = bwd_scratch(B, S, H, P, N, Q, HG, sizeof(T));
+  float* states = ws;                   // passes 1-2'
+  float* rstates = states + w.states;
+  float* cum = ws;                      // pass 3' on, over the states
+  float* dts = cum + w.cum;
+  float* pos = dts + w.cum;
   const long long np = w.pos4 / 4;
-  float* ga_part = pos + w.pos4;
-  float* parts = ga_part + w.ga;
+  float* rowpart = pos + w.pos4;
+  float* dgs = rowpart + w.rowpart;
+  float* parts = dgs + w.dgs;
+  float* gxacc = parts + w.parts;
+  T* rt = reinterpret_cast<T*>(ws + w.region);
+  T* stt = reinterpret_cast<T*>(ws + w.region + w.tcopy);
+  float* cdecay = ws + w.region + 2 * w.tcopy;
+  float* fstate = cdecay + w.cdecay;
+  float* gl = fstate + w.fstate;
+  float* ga_part = gl + w.gl;
   BwdArgs a = a0;
-  a.states = states;
-  a.rstates = rstates;
+  a.rt = rt;
+  a.st = stt;
+  a.cum = cum;
+  a.dts = dts;
   a.rowp = pos;
   a.colp = pos + np;
   a.gdtd = pos + 2 * np;
   a.tloc = pos + 3 * np;
+  a.rowpart = rowpart;
+  a.dgs = dgs;
   a.part_b = parts;
   a.part_c = parts + w.parts / 2;
+  a.gxacc = gxacc;
+  a.vst = (int)((N * sizeof(T)) % 16 == 0);
   cudaError_t err = bwd_opt_in<T, NTN>();
   if (err != cudaSuccess) return (int)err;
   const dim3 g1(ptiles * ((N + kTile - 1) / kTile), H, B * nC);
@@ -1279,17 +1729,20 @@ int launch_bwd(const BwdArgs& a0, float* ws, const float* g_state,
   ssd_chunk_state_kernel<T, true><<<g1, kThreads, 0, st>>>(
       (const T*)a.gy, a.dt, a.A, (const T*)a.Cm, rstates, cdecay, S, H, P, N,
       Q, nC, g);
-  // 2': the state gradients, last chunk first
+  // 2': the state gradients, last chunk first; R_c and S_c in T
   if (w.V == 4)
-    ssd_state_grad_kernel<4><<<dim3(w.nb, H, B), 256, 0, st>>>(
-        rstates, states, cdecay, g_state, gl, H, PN, nC);
+    ssd_state_grad_kernel<T, 4><<<dim3(w.nb, H, B), 256, 0, st>>>(
+        rstates, states, cdecay, g_state, rt, stt, gl, H, PN, nC);
   else
-    ssd_state_grad_kernel<1><<<dim3(w.nb, H, B), 256, 0, st>>>(
-        rstates, states, cdecay, g_state, gl, H, PN, nC);
-  // 3': columns and rows of each chunk's pairs
-  const dim3 g3(nqt, HG, B * nC);
-  ssd_bwd_col_kernel<T, NTN><<<g3, kThreads, col_smem<T>(Q, NTN * 8), st>>>(a);
-  ssd_bwd_row_kernel<T, NTN><<<g3, kThreads, row_smem<T>(Q, NTN * 8), st>>>(a);
+    ssd_state_grad_kernel<T, 1><<<dim3(w.nb, H, B), 256, 0, st>>>(
+        rstates, states, cdecay, g_state, rt, stt, gl, H, PN, nC);
+  // 3': cum and dt rows, the pairs' columns, then gB and gC by tile
+  ssd_bwd_cum_kernel<<<dim3(H, B * nC), kThreads, 0, st>>>(
+      a.dt, a.A, cum, dts, S, H, Q, nC);
+  ssd_bwd_col_kernel<T, NTN><<<dim3(B * nC, HG, nqt), kColThreads,
+                               col_smem<T>(Q, NTN * 8), st>>>(a);
+  ssd_bwd_bc_kernel<T, NTN><<<dim3(nqt, HG, B * nC), kThreads,
+                              bc_smem<T>(Q, NTN * 8), st>>>(a);
   // 4': gdt and the chunks' shares of gA
   ssd_bwd_dt_kernel<<<dim3(H, B * nC), kThreads, 0, st>>>(
       a.dt, a.A, a.rowp, a.colp, a.gdtd, a.tloc, gl, w.nb, gdt, ga_part, S,
@@ -1347,13 +1800,13 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
 extern "C" int ssd_scan_bwd_pmax() { return kPMaxBwd; }
 extern "C" int ssd_scan_bwd_nmax() { return kNMaxBwd; }
 
-// Floats of scratch the backward needs for these shapes and HG head
-// groups (the caller allocates them, 16-byte aligned).
+// Floats of scratch the backward needs for these shapes, dtype (as
+// ssd_scan_bwd_launch's) and HG head groups (the caller allocates them,
+// 16-byte aligned).
 extern "C" long long ssd_scan_bwd_workspace(int B, int S, int H, int P,
-                                            int N, int Q, int HG) {
-  const BwdScratch w = bwd_scratch(B, S, H, P, N, Q, HG);
-  return w.states + w.cdecay + w.fstate + w.rstates + w.gl + w.pos4 + w.ga +
-         w.parts;
+                                            int N, int Q, int HG,
+                                            int dtype) {
+  return bwd_floats(bwd_scratch(B, S, H, P, N, Q, HG, dtype == 0 ? 4 : 2));
 }
 
 // The gradients of ssd_scan_launch's inputs.  dtype, shapes and the

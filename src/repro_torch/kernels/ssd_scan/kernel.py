@@ -18,7 +18,10 @@ unit stride along P and Bm/Cm unit stride along N.
 the forward's passes 1-2 again, then the state gradients and each
 chunk's input gradients), counted in ``BACKWARD_LAUNCHES``.  The Pallas
 kernel has no backward; this one gives the training path's
-``_SSDScan.backward`` a kernel on the card.
+``_SSDScan.backward`` a kernel on the card.  Its pass over each chunk's
+position pairs runs a block per (64 positions, head group, batch x
+chunk); ``_groups`` picks the number of head groups from the SM count,
+and ``groups=`` overrides it.
 """
 from __future__ import annotations
 
@@ -38,11 +41,15 @@ NMAX_BWD = 128        # csrc/ssd_scan.cu kNMaxBwd: the backward's largest N
 # The bfloat16 backward against the plain version on the same card
 # tensors, as a share of each gradient's largest magnitude.  Both routes
 # round to bfloat16 (the plain one C·Bᵀ and each gradient it casts back,
-# the kernel W, dG and the carried states as product operands and its
-# outputs), 2**-9 relative each, in sums of up to Q x H terms; the kernel
-# against the float32 plain backward on the same rounded inputs read
-# 1.4e-4 to 4.8e-3 of the largest magnitude at the card tests' shapes and
-# at (1, 4,096, 48, 64, N 128) on an H100.  4x that.
+# the kernel W, R_c, S_c and each head group's float32 sum of dG as
+# product operands, and its outputs), 2**-9 relative each, in sums of up
+# to Q x H terms.  dG rounds once a head group, so gBm and gCm depend on
+# the split into groups (``_groups``, from the SM count), which the card
+# tests run at 1, 3 and H groups.  The kernel read 3.8e-3 to 7.2e-3 of
+# the largest magnitude (the worst gradient of each case) at the card
+# tests' shapes and at (4, 4,096, 48, 64, N 128), with and without a
+# final-state gradient, at 1, 3 and H groups and ``_groups``' own, on an
+# NVIDIA H100 80GB HBM3 at 700 W.  2.8x the largest.
 BWD_BF16_TOL = 2e-2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -65,7 +72,7 @@ def _lib() -> ctypes.CDLL:
                         + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
         bwd.restype = ctypes.c_int
         ws = lib.ssd_scan_bwd_workspace
-        ws.argtypes, ws.restype = [ctypes.c_int] * 7, ctypes.c_longlong
+        ws.argtypes, ws.restype = [ctypes.c_int] * 8, ctypes.c_longlong
     return lib
 
 
@@ -145,24 +152,27 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, state
 
 
-def _groups(B, S, H, chunk, dev) -> int:
-    """Head groups of the backward's pass 3': enough blocks for about
-    four a multiprocessor, each group summing gB and gC over its heads
-    (ceil(H / groups) of them; every group non-empty)."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+def _groups(B, S, H, chunk, sms) -> int:
+    """Head groups of the backward's pass 3' on a card of ``sms``
+    multiprocessors: enough blocks for one column-kernel block an SM (it
+    fills an SM; fewer groups form C·Bᵀ and the dG products fewer
+    times), each group forming C·Bᵀ once a tile pair and summing dG, gB
+    and gC over its ceil(H / groups) heads (every group non-empty)."""
     tiles = -(-chunk // 64) * B * -(-S // chunk)
-    want = min(H, max(1, -(-4 * sms // tiles)))
+    want = min(H, max(1, -(-sms // tiles)))
     return -(-H // -(-H // want))
 
 
 def ssd_scan_backward_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                            Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
-                           g_y: torch.Tensor, g_state=None):
+                           g_y: torch.Tensor, g_state=None, groups=None):
     """One launch of the backward: the inputs as ``ssd_scan_cuda`` takes
     them (P <= 64, N <= 128), ``g_y`` (B,S,H,P) in x's dtype with a token
-    (H, P) contiguous, ``g_state`` (B,H,P,N) float32 or None (zero) ->
-    (gx (B,S,H,P), gdt (B,S,H) float32, gA (H,) float32, gBm and gCm
-    (B,S,N)), gx, gBm and gCm in x's dtype, all contiguous."""
+    (H, P) contiguous, ``g_state`` (B,H,P,N) float32 or None (zero),
+    ``groups`` the head groups (default ``_groups``; each of
+    ceil(H / groups) heads but the last, none empty) -> (gx (B,S,H,P),
+    gdt (B,S,H) float32, gA (H,) float32, gBm and gCm (B,S,N)), gx, gBm
+    and gCm in x's dtype, all contiguous."""
     global BACKWARD_LAUNCHES
     B, S, H, P, N = _check("ssd_scan_backward_cuda", x, dt, A, Bm, Cm, chunk)
     dev = x.device
@@ -184,9 +194,15 @@ def ssd_scan_backward_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"g_state {tuple(g_state.shape)} {g_state.dtype} on "
                          f"{g_state.device}: expected a contiguous "
                          f"{(B, H, P, N)} float32 on {dev}")
-    groups = _groups(B, S, H, chunk, dev)
+    if groups is None:
+        groups = _groups(B, S, H, chunk, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+    elif not 1 <= groups <= H or (groups - 1) * -(-H // groups) >= H:
+        raise ValueError(f"groups={groups} for H={H}: each group takes "
+                         "ceil(H / groups) heads and none may be empty")
     lib = _lib()
-    ws = torch.empty(lib.ssd_scan_bwd_workspace(B, S, H, P, N, chunk, groups),
+    ws = torch.empty(lib.ssd_scan_bwd_workspace(B, S, H, P, N, chunk, groups,
+                                                _DTYPES[x.dtype]),
                      dtype=torch.float32, device=dev)
     gx = torch.empty((B, S, H, P), dtype=x.dtype, device=dev)
     gdt = torch.empty((B, S, H), dtype=torch.float32, device=dev)

@@ -1118,7 +1118,9 @@ def test_route_grad_on_card(dtype, renorm):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,P,N,chunk", [(2, 20, 8, 16, 16, 16),
-                                             (1, 1000, 48, 64, 128, 256)])
+                                             (1, 1000, 48, 64, 128, 256),
+                                             (1, 1100, 4, 64, 128, 512),
+                                             (1, 2500, 4, 64, 128, 1024)])
 def test_ssd_grad_on_card_matches_cpu(B, S, H, P, N, chunk):
     """The SSD Function's gradients of the conv output (x, Bm, Cm as its
     strided slices), dt and A on the card (the kernel's forward, one
@@ -1152,7 +1154,9 @@ def test_ssd_grad_on_card_matches_cpu(B, S, H, P, N, chunk):
 @pytest.mark.parametrize("with_state", [False, True])
 @pytest.mark.parametrize("B,S,H,P,N,chunk", [(2, 20, 8, 16, 16, 16),
                                              (2, 300, 3, 24, 40, 128),
-                                             (1, 1000, 48, 64, 128, 256)])
+                                             (1, 1000, 48, 64, 128, 256),
+                                             (1, 1100, 4, 64, 128, 512),
+                                             (1, 2500, 4, 64, 128, 1024)])
 def test_ssd_backward_bf16_on_card_matches_plain(B, S, H, P, N, chunk,
                                                  with_state):
     """The bfloat16 backward kernel (strided x, Bm, Cm as ``ssd_block``
@@ -1180,6 +1184,75 @@ def test_ssd_backward_bf16_on_card_matches_plain(B, S, H, P, N, chunk,
         assert scale > 0 and bool(torch.isfinite(g).all())
         assert float((g.float() - w.float()).abs().max()) <= \
             SK.BWD_BF16_TOL * scale
+
+
+def _ssd_backward_case(dtype, B, S, H, P, N, seed):
+    """Card inputs of the backward: x, dt, A, Bm, Cm as ``ssd_block``
+    hands them over, the gradient of y in x's dtype and a float32
+    gradient of the final state."""
+    args = sample_inputs(B, S, H, P, N, seed, "cuda", dtype)
+    rng = np.random.default_rng(seed + 1)
+    g_y = torch.from_numpy(rng.standard_normal((B, S, H, P))
+                           .astype(np.float32)).cuda().to(dtype)
+    g_s = torch.from_numpy(rng.standard_normal((B, H, P, N))
+                           .astype(np.float32)).cuda()
+    return args, g_y, g_s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_backward_is_bit_equal_run_to_run(dtype):
+    """Two launches of the backward kernel on the same inputs give the
+    same bits: the head groups' sums and the row sums run in a fixed
+    order, with no atomics (the sharded step's 1e-6 comparisons of
+    DTensor gradients rest on it)."""
+    _need_cuda()
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    args, g_y, g_s = _ssd_backward_case(getattr(torch, dtype), 2, 600, 8,
+                                        64, 128, 13)
+    first = SK.ssd_scan_backward_cuda(*args, 256, g_y, g_s)
+    second = SK.ssd_scan_backward_cuda(*args, 256, g_y, g_s)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 3, "H"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_backward_head_groups_on_card(groups, dtype):
+    """The backward kernel at 1, 3 and H head groups (H 8: groups of 8;
+    3, 3 and 2; 1 head) against the plain version under autograd on the
+    same card tensors, one launch each: float32 within 3e-4, bfloat16
+    within ``kernel.BWD_BF16_TOL`` of each gradient's largest magnitude
+    (dG rounds once a group, so the bfloat16 bits depend on the split).
+    A split that leaves a group empty is refused before a launch."""
+    _need_cuda()
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    from repro_torch.kernels.ssd_scan import ref as SR
+    dt_ = getattr(torch, dtype)
+    H = 8
+    args, g_y, g_s = _ssd_backward_case(dt_, 2, 300, H, 64, 128, 17)
+    before = SK.BACKWARD_LAUNCHES
+    got = SK.ssd_scan_backward_cuda(*args, 128, g_y, g_s,
+                                    groups=H if groups == "H" else groups)
+    want = SR.ssd_scan_backward_ref(args, 128, g_y, g_s, (True,) * 5)
+    torch.cuda.synchronize()
+    assert SK.BACKWARD_LAUNCHES == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g).all())
+        scale = float(w.float().abs().max())
+        assert scale > 0
+        if dt_ == torch.float32:
+            torch.testing.assert_close(g, w, rtol=3e-4, atol=3e-4)
+        else:
+            assert float((g.float() - w.float()).abs().max()) <= \
+                SK.BWD_BF16_TOL * scale
+    for bad in (0, 7, H + 1):
+        with pytest.raises(ValueError, match="groups"):
+            SK.ssd_scan_backward_cuda(*args, 128, g_y, g_s, groups=bad)
+    assert SK.BACKWARD_LAUNCHES == before + 1
 
 
 def test_ssd_backward_wrapper_rejects_cpu_tensors():

@@ -305,7 +305,7 @@ def _port_files():
     files += [ROOT / "chip_smoke.py", ROOT / "profile_epoch.py",
               ROOT / "profile_serve.py", ROOT / "profile_clear.py",
               ROOT / "profile_route.py", ROOT / "profile_train.py",
-              ROOT / "profile_trainer.py",
+              ROOT / "profile_trainer.py", ROOT / "profile_ssd.py",
               ROOT / "tests" / "torch_schema_cases.py",
               ROOT / "tests" / "torch_serve_check.py"]
     return files
@@ -314,7 +314,8 @@ def _port_files():
 def test_port_imports_neither_jax_nor_repro():
     """Every module of the port, chip_smoke.py, the profilers
     (profile_epoch.py, profile_serve.py, profile_clear.py,
-    profile_route.py, profile_train.py, profile_trainer.py) and the
+    profile_route.py, profile_train.py, profile_trainer.py,
+    profile_ssd.py) and the
     break cases chip_smoke.py shares with the
     tests (tests/torch_schema_cases.py) and the sharded serving check a
     spawned rank imports (tests/torch_serve_check.py) import no

@@ -222,18 +222,21 @@ def _three_pass_mirror(x, dt, A, Bm, Cm, chunk):
     return y.to(x.dtype), state
 
 
-def _backward_mirror(x, dt, A, Bm, Cm, chunk, g_y, g_state):
+def _backward_mirror(x, dt, A, Bm, Cm, chunk, g_y, g_state, groups):
     """Plain-PyTorch mirror of the CUDA backward's passes, with its
     roundings for bfloat16 inputs -> (gx, gdt, gA, gBm, gCm).  Passes
     1-2 again; (1') D_c = (g_y exp(cum))ᵀ C, split like pass 1; (2') the
     state gradients R_c walked from the last chunk (R = g_state, or 0)
-    with the carry's exp(L_c) <R_c, S_c>; (3') per chunk, with W and dG
-    = dW ∘ L ∘ dt (dW = g_y xᵀ) rounded to the inputs' dtype as product
-    operands, and R_c, S_c likewise: gx = Wᵀ g_y + u (B R_cᵀ), gB = Σ_h
-    dGᵀ C + u (x R_c), gC = Σ_h dG B + exp(cum) (g_y S_c), the row and
-    column sums of dW ∘ G ∘ L ∘ dt; (4') the gradient of cum, its
-    reverse cumsum within the chunk, gdt and gA."""
+    with the carry's exp(L_c) <R_c, S_c>; (3') per chunk, with W = G ∘ L
+    ∘ dt rounded to the inputs' dtype as a product operand, dG = dW ∘ L
+    ∘ dt (dW = g_y xᵀ) summed in float32 over each of ``groups`` head
+    groups (ceil(H / groups) consecutive heads) and the sum rounded once,
+    and R_c, S_c rounded likewise: gx = Wᵀ g_y + u (B R_cᵀ), gB =
+    Σ_groups dGᵀ C + u (x R_c), gC = Σ_groups dG B + exp(cum) (g_y S_c),
+    the row and column sums of dW ∘ G ∘ L ∘ dt; (4') the gradient of cum,
+    its reverse cumsum within the chunk, gdt and gA."""
     b, s, h, p = x.shape
+    hpg = -(-h // groups)
     n = Bm.shape[-1]
     dtype = x.dtype
     cums, entering, cdecay, _ = _carried_states(x, dt, A, Bm, chunk)
@@ -269,7 +272,9 @@ def _backward_mirror(x, dt, A, Bm, Cm, chunk, g_y, g_state):
         dW = torch.einsum("bihp,bjhp->bijh", gyf[:, sl], xf[:, sl])
         dtj = d[:, None, :, :]
         W = _rnd(G * E * dtj, dtype)
-        dG = _rnd(dW * E * dtj, dtype)
+        dGh = dW * E * dtj                                # float32, per head
+        dG = torch.stack([_rnd(dGh[..., g0:g0 + hpg].sum(-1), dtype)
+                          for g0 in range(0, h, hpg)], -1)  # per group
         M = dW * G * E                                    # without dt_j
         Rn = _rnd(leaving[c], dtype)
         ej = torch.exp(cum[:, -1:] - cum)                 # (b, j, h)
@@ -278,10 +283,10 @@ def _backward_mirror(x, dt, A, Bm, Cm, chunk, g_y, g_state):
             u[..., None] * torch.einsum("bjn,bhpn->bjhp", Bf[:, sl], Rn)
         V = torch.einsum("bjhp,bhpn->bjhn", xf[:, sl], Rn)
         du = torch.einsum("bjn,bjhn->bjh", Bf[:, sl], V)
-        gB[:, sl] = torch.einsum("bijh,bin->bjn", dG, Cf[:, sl]) + \
+        gB[:, sl] = torch.einsum("bijg,bin->bjn", dG, Cf[:, sl]) + \
             torch.einsum("bjh,bjhn->bjn", u, V)
         rowp = (M * dtj).sum(2)                           # (b, i, h)
-        gC[:, sl] = torch.einsum("bijh,bjn->bin", dG, Bf[:, sl])
+        gC[:, sl] = torch.einsum("bijg,bjn->bin", dG, Bf[:, sl])
         if c:
             Z = torch.einsum("bihp,bhpn->bihn", gyf[:, sl],
                              _rnd(entering[c], dtype))
@@ -329,7 +334,8 @@ def test_three_pass_mirror_matches_reference(B, S, H, P, N, chunk, dtype):
 # bfloat16 inputs against the reference's float32 gradient on the same
 # rounded values, as a share of each gradient's largest magnitude: two
 # bfloat16 roundings on each term's path (an operand formed in float32
-# -- W, dG, the carried states -- and the rounded output, 2**-9 each),
+# -- W, a head group's sum of dG, the carried states -- and the rounded
+# output, 2**-9 each),
 # up to 5x by cancellation in the sums; the worst case, gA's sum over
 # every position, read 7.9e-3 on these shapes.  (The card's kernel is
 # held to the plain version by ``kernel.BWD_BF16_TOL``, a different pair.)
@@ -347,19 +353,33 @@ def _jax_backward(B, S, H, P, N, chunk):
     return jax.jit(vjp)
 
 
+# The backward's head groups: each case at the split an H100 (132 SMs)
+# takes, ``kernel._groups``, and two cases also at one group and at H.
+H100_SMS = 132
+BACKWARD_CASES = [
+    pytest.param(*case, None, id="-".join(map(str, case)))
+    for case in MIRROR_CASES] + [
+    pytest.param(*case, g, id="-".join(map(str, case)) + f"-groups{g}")
+    for case in (MIRROR_CASES[0], MIRROR_CASES[4])
+    for g in (1, case[2])]
+
+
 @pytest.mark.parametrize("with_state", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,S,H,P,N,chunk", MIRROR_CASES)
-def test_backward_mirror_matches_reference(B, S, H, P, N, chunk, dtype,
-                                           with_state):
+@pytest.mark.parametrize("B,S,H,P,N,chunk,groups", BACKWARD_CASES)
+def test_backward_mirror_matches_reference(B, S, H, P, N, chunk, groups,
+                                           dtype, with_state):
     """The CUDA backward's passes, with its roundings, against the
     reference's gradient (the jitted vjp of ``ssd_chunked`` in float32)
     under an upstream gradient on y and, with ``with_state``, on the
-    final state (training gives it none).  float32 within 1e-4, as
+    final state (training gives it none), at ``groups`` head groups (by
+    default the H100's).  float32 within 1e-4, as
     ``test_torch_train.py::test_ssd_grad_matches_reference``; bfloat16
     inputs (x, Bm, Cm and the gradient of y rounded) against the float32
     gradient of the rounded values within ``BWD_BF16_TOL`` of each
     gradient's largest magnitude."""
+    if groups is None:
+        groups = K._groups(B, S, H, chunk, H100_SMS)
     arrays = list(_inputs(B, S, H, P, N, S * 13 + chunk))
     rng = np.random.default_rng(S + chunk)
     up_y = rng.standard_normal((B, S, H, P)).astype(np.float32)
@@ -374,7 +394,8 @@ def test_backward_mirror_matches_reference(B, S, H, P, N, chunk, dtype,
     _, t = _both(arrays, dtype)
     got = _backward_mirror(*t, chunk,
                            torch.from_numpy(up_y).to(t[0].dtype),
-                           torch.from_numpy(up_s) if with_state else None)
+                           torch.from_numpy(up_s) if with_state else None,
+                           groups)
     for name, g, w, inp in zip(("x", "dt", "A", "Bm", "Cm"), got, want, t):
         assert g.dtype == inp.dtype and g.shape == inp.shape, name
         w = np.asarray(w)
