@@ -932,7 +932,7 @@ def phase_decode_cut(dev):
     from repro_torch.kernels.decode_attention import ops as DO
     from repro_torch.kernels.decode_attention import ref as DR
     tol, launches, worst = BF16_MERGE_TOL, 0, 0.0
-    timed = None
+    timed = jamba = None
     for path, B, S, K, G, hd, cases in DECODE_CUT:
         dt = torch.bfloat16
         q = _randn((B, K, G, hd), 31, dev, dt)
@@ -1000,6 +1000,8 @@ def phase_decode_cut(dev):
                 if path == "gemma3_global" and pos == 20000 and R == 4:
                     timed = (q, k, v, blocks[0], [torch.stack(x) for x in
                                                   zip(*parts)], pos)
+                if path == "jamba" and pos == 4106 and R == 4:
+                    jamba = (q, blocks[0], parts[0], pos)
                 del blocks, parts
         del q, k, v
     q, k, v, (kb, vb), (o4, m4, l4), pos = timed
@@ -1038,10 +1040,42 @@ def phase_decode_cut(dev):
              "timed_shape": {"B": B, "S": S, "K": K, "G": G, "hd": hd,
                              "blocks": 4, "block": n, "pos": pos,
                              "block_offset": 0, "dtype": "bfloat16"},
-             "bytes": nbytes, "operations": ops}
+             "bytes": nbytes, "operations": ops,
+             "jamba_block": _jamba_block_times(*jamba)}
     emit({"phase": "decode_cut_times", **{k_: v_ for k_, v_ in entry.items()
                                           if k_ not in ("name", "source")}})
     return entry
+
+
+def _jamba_block_times(q, block, part, pos):
+    """The partial mode on jamba's rank block (B 4, 2,048 of 8,192
+    positions, K 8, G 4, bfloat16; fully valid at ``pos``), the shape
+    jamba-sharded-serve launches on each card: graph and eager ms, the
+    plain partial's, flash attention with its logsumexp on the same block
+    (``library_ms``) and the bound (the block, q, o, m and l once)."""
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ref as DR
+    kb, vb = block
+    B, n, K, hd = kb.shape
+    G = q.shape[2]
+    nbytes = 2 * (B * K * G * hd + 2 * B * n * K * hd) \
+        + 4 * (B * K * G * hd + 2 * B * K * G)
+    ops = 4 * B * K * G * n * hd
+    bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
+    splits, split_len = DK.launch_plan(q.device, q.dtype, B, K, G, hd, n)
+    return {"ms": _graph_ms(lambda i: DK.decode_attention_partial_cuda(
+                q, kb, vb, pos, 0, 0), 160),
+            "ms_eager": _time_ms(lambda i: DK.decode_attention_partial_cuda(
+                q, kb, vb, pos, 0, 0), 160),
+            "plain_ms": _graph_ms(lambda i: DR.decode_attention_partial_ref(
+                q, kb, vb, pos, 0, 0), 32),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            **_block_library(q, kb, vb, *part),
+            "splits": splits, "split_len": split_len,
+            "timed_shape": {"B": B, "S": 4 * n, "K": K, "G": G, "hd": hd,
+                            "blocks": 4, "block": n, "pos": pos,
+                            "block_offset": 0, "dtype": "bfloat16"},
+            "bytes": nbytes, "operations": ops}
 
 
 def _block_library(q, kb, vb, o, m, l):
@@ -3123,9 +3157,8 @@ def _decode_numbers(ck, cv, G, pos, window, seed=7):
     rate = BF16_OPS_PER_S if ck.dtype == torch.bfloat16 else FP32_OPS_PER_S
     bound_ms, bound_by = _bound(nbytes(n), ops, rate)
     full_ms, _ = _bound(nbytes(S), 4 * B * K * G * S * hd, rate)
-    splits, split_len = DK.split_plan(
-        n, B * K, torch.cuda.get_device_properties(ck.device)
-        .multi_processor_count)
+    splits, split_len = DK.launch_plan(ck.device, ck.dtype, B, K, G, hd,
+                                       n)
     return {"max_abs_err": err, **times, "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_max_abs_err": float((lib.float() - got.float())
@@ -3433,8 +3466,13 @@ def main() -> None:
     del rep, blk
     _release()
     rep, launches = timed("serve_qwen3", phase_serve, dev, "qwen3-0.6b")
-    decode["launches_by_path"][rep.cfg.name] = launches["decode_attention"]
-    del rep
+    cfg = rep.cfg
+    blk = rep.server.cache["blocks"][0]
+    _decode_path_entry(decode, cfg.name, launches, blk["k"], blk["v"],
+                       cfg.num_heads // cfg.num_kv_heads,
+                       SERVE_FULL["prompt_len"] + SERVE_FULL["max_new"] - 2,
+                       0)
+    del rep, blk
     _release()
     rep, launches = timed("serve_danube", phase_serve, dev,
                           "h2o-danube-1.8b", DANUBE_SERVE)

@@ -391,7 +391,14 @@ def test_decode_valid_range(S, pos, window, want):
     # (MQA: K 1, G 8, hd 256), whisper's cross-attention (every frame)
     (4, 1064, 16, 2, 128, 1054, 1024), (4, 1064, 8, 2, 128, 1054, 0),
     (2, 4184, 8, 4, 80, 4170, 4096), (2, 280, 1, 8, 256, 279, 0),
-    (2, 1500, 8, 1, 64, 1499, 0)])
+    (2, 1500, 8, 1, 64, 1499, 0),
+    # plans of more than 8 splits (K 1, and 2 groups over 8,000
+    # positions), G exactly 2, 4 and 8 at hd 80, G above 8 (two blocks of
+    # query rows), a window over tens of splits
+    (1, 4096, 1, 1, 128, 4095, 0), (1, 8192, 2, 4, 80, 8000, 0),
+    (1, 8192, 2, 2, 80, 8191, 0), (1, 8192, 2, 8, 80, 6000, 0),
+    (2, 3000, 1, 2, 256, 2999, 0), (1, 5000, 1, 12, 64, 4999, 0),
+    (1, 9000, 1, 8, 128, 8500, 4000), (1, 2000, 1, 1, 80, 1999, 0)])
 def test_decode_attention_kernel_matches_plain_on_card(dtype, B, S, K, G,
                                                        hd, pos, window):
     """Tolerance 2e-5 (float32) / 3e-2 (bfloat16), as the reference's
@@ -1389,6 +1396,225 @@ def test_dtensor_decode_on_card_matches_plain():
     (plain, n_plain), (dt, n_dt) = runs
     torch.testing.assert_close(dt, plain, rtol=0, atol=1e-5)
     assert n_dt == n_plain == 2 * cfg.num_layers
+
+
+def _chip_smoke():
+    """The root ``chip_smoke`` module (its shape tables)."""
+    import sys
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+def _decode_inputs(B, S, K, G, hd, dt, seed):
+    gen = torch.Generator("cuda").manual_seed(seed)
+    return tuple(torch.randn(s, generator=gen, device="cuda").to(dt)
+                 for s in ((B, K, G, hd), (B, S, K, hd), (B, S, K, hd)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_at_chip_smoke_shapes_on_card(dtype):
+    """The kernel against its plain version at every ``DECODE_SHAPES``
+    case of chip_smoke.py, and on the ``DECODE_CUT`` caches the whole
+    cache and each rank's block (partial mode, every ``DECODE_CUT_RANKS``
+    cut) against the plain whole cache and the plain partial: 2e-5
+    (float32) / 3e-2 (bfloat16) for the output, 2e-5 for the float32
+    ``(o, m, l)`` (``PARTIAL_TOL``)."""
+    _need_cuda()
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ref as DR
+    cs = _chip_smoke()
+    dt = getattr(torch, dtype)
+    tol = 3e-2 if dt == torch.bfloat16 else 2e-5
+    for path, B, S, K, G, hd, cases in cs.DECODE_SHAPES:
+        q, k, v = _decode_inputs(B, S, K, G, hd, dt, S + G)
+        for pos, window in cases:
+            got = DK.decode_attention_cuda(q, k, v, pos, window)
+            want = DR.decode_attention_ref(q, k, v, pos, window)
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol, msg=lambda m: f"{path} "
+                                       f"pos {pos} window {window}: {m}")
+    for path, B, S, K, G, hd, cases in cs.DECODE_CUT:
+        q, k, v = _decode_inputs(B, S, K, G, hd, dt, S + K)
+        for pos, window in cases:
+            got = DK.decode_attention_cuda(q, k, v, pos, window)
+            want = DR.decode_attention_ref(q, k, v, pos, window)
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            del want
+            for R_ in cs.DECODE_CUT_RANKS:
+                n = S // R_
+                for r in range(R_):
+                    kb, vb = (x[:, r * n:(r + 1) * n].contiguous()
+                              for x in (k, v))
+                    part = DK.decode_attention_partial_cuda(
+                        q, kb, vb, pos, window, r * n)
+                    plain = DR.decode_attention_partial_ref(
+                        q, kb, vb, pos, window, r * n)
+                    for g, w in zip(part, plain):
+                        torch.testing.assert_close(
+                            g, w, rtol=cs.PARTIAL_TOL, atol=cs.PARTIAL_TOL,
+                            msg=lambda m: f"{path} pos {pos} R {R_} block "
+                            f"{r}: {m}")
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+# (B, S, K, G, hd, pos, window, partial): plans of one split and of many
+# (more than 8), both modes
+DECODE_REPEAT_CASES = [
+    (4, 1064, 16, 2, 128, 1054, 1024, False),
+    (2, 280, 1, 8, 256, 279, 0, False),
+    (1, 8192, 2, 4, 80, 8000, 0, False),
+    (4, 2048, 8, 4, 128, 2047, 0, True),
+    (1, 4096, 1, 1, 128, 4095, 0, True),
+    (2, 37, 2, 2, 16, 36, 0, False)]
+
+
+def _decode_call(partial, q, k, v, pos, window):
+    from repro_torch.kernels.decode_attention import kernel as DK
+    if partial:
+        return DK.decode_attention_partial_cuda(q, k, v, pos, window, 0)
+    return (DK.decode_attention_cuda(q, k, v, pos, window),)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,K,G,hd,pos,window,partial",
+                         DECODE_REPEAT_CASES)
+def test_decode_attention_is_bit_equal_run_to_run(B, S, K, G, hd, pos,
+                                                  window, partial):
+    """Two calls give the same bits: the warps and then the splits are
+    merged in a fixed order, whichever split arrives last."""
+    _need_cuda()
+    q, k, v = _decode_inputs(B, S, K, G, hd, torch.bfloat16, S + pos)
+    first = _decode_call(partial, q, k, v, pos, window)
+    for _ in range(3):
+        again = _decode_call(partial, q, k, v, pos, window)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,K,G,hd,pos,window,partial",
+                         DECODE_REPEAT_CASES)
+def test_decode_attention_graph_replays_match_eager(B, S, K, G, hd, pos,
+                                                    window, partial):
+    """Three launches captured in one CUDA graph, replayed three times in
+    a row, equal the eager call bit for bit.  The capture's counters are
+    zeroed once, at its first launch: the second and third launches pass
+    only if every launch leaves its counters at 0."""
+    _need_cuda()
+    from repro_torch.kernels.decode_attention import kernel as DK
+    q, k, v = _decode_inputs(B, S, K, G, hd, torch.bfloat16, S + pos + 1)
+    want = _decode_call(partial, q, k, v, pos, window)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):               # the counters, eagerly
+        _decode_call(partial, q, k, v, pos, window)
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = DK.LAUNCHES
+    with torch.cuda.graph(graph, stream=stream):
+        outs = [_decode_call(partial, q, k, v, pos, window)
+                for _ in range(3)]
+    assert DK.LAUNCHES == before + 3
+    for _ in range(3):
+        for out in outs:
+            for x in out:
+                x.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for out in outs:
+            assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+@pytest.mark.cuda
+def test_decode_attention_graphs_on_one_stream_replay_in_any_order():
+    """Two graphs captured on torch's shared capture stream (as
+    chip_smoke's ``_graph_ms`` captures, after a warm-up on a side
+    stream), the second with more groups than the first, then eager calls
+    that outgrow the stream's workspace: replayed second first, then
+    first, twice, each graph's outputs equal the eager call bit for bit.
+    Each capture has counters of its own, zeroed by its own graph, and no
+    graph holds a workspace that eager launches replace."""
+    _need_cuda()
+    cases = [(1, 4096, 1, 1, 128, 4095, 0, False),
+             (4, 2048, 8, 4, 128, 2047, 0, True)]
+    ins = [_decode_inputs(B, S, K, G, hd, torch.bfloat16, S + pos)
+           for B, S, K, G, hd, pos, window, partial in cases]
+    wants = [_decode_call(c[7], *x, c[5], c[6]) for c, x in zip(cases, ins)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for c, x in zip(cases, ins):
+            _decode_call(c[7], *x, c[5], c[6])
+    torch.cuda.current_stream().wait_stream(side)
+    graphs, outs = [], []
+    for c, x in zip(cases, ins):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append([_decode_call(c[7], *x, c[5], c[6])
+                         for _ in range(2)])
+        graphs.append(graph)
+    # 33 groups of 8 query rows over 8 splits: 4x the scratch of cases
+    big = _decode_inputs(1, 4096, 33, 8, 128, torch.bfloat16, 7)
+    for stream in (torch.cuda.current_stream(), side):
+        with torch.cuda.stream(stream):
+            _decode_call(False, *big, 4095, 0)
+    torch.cuda.synchronize()
+    for _ in range(2):
+        for i in (1, 0):
+            for out in outs[i]:
+                for x in out:
+                    x.fill_(float("nan"))
+            graphs[i].replay()
+            torch.cuda.synchronize()
+            for out in outs[i]:
+                assert all(torch.equal(a, b) for a, b in zip(out, wants[i]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_partial_masked_block_over_many_splits_on_card(dtype):
+    """A block with no valid position whose uniform pass runs over many
+    splits (jamba's rank block, 2,048 positions, and a 1-group block of
+    8,192): m = -2**30 and l the block's length exactly, o the mean of its
+    values within 2e-5, as the plain partial."""
+    _need_cuda()
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ref as DR
+    dt = getattr(torch, dtype)
+    for B, S, K, G, hd, offset, pos in ((4, 2048, 8, 4, 128, 6144, 1030),
+                                        (1, 8192, 1, 2, 80, 8192, 100)):
+        q, k, v = _decode_inputs(B, S, K, G, hd, dt, S + offset)
+        splits, _ = DK.launch_plan(q.device, dt, B, K, G, hd, S)
+        assert splits > 1
+        o, m, l = DK.decode_attention_partial_cuda(q, k, v, pos, 0, offset)
+        want = DR.decode_attention_partial_ref(q, k, v, pos, 0, offset)
+        torch.cuda.synchronize()
+        assert bool((m == DR.NEG_INF).all()) and bool((l == S).all())
+        torch.testing.assert_close(o, want[0], rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(
+            o, v.float().mean(dim=1)[:, :, None, :].expand_as(o),
+            rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_decode_plan_passes_the_cluster_size_on_card():
+    """The plan takes more than 8 splits where few groups hold many
+    positions (no cluster cap), and one split where the groups alone
+    fill the card."""
+    _need_cuda()
+    from repro_torch.kernels.decode_attention import kernel as DK
+    dev = torch.device("cuda")
+    assert DK.launch_plan(dev, torch.bfloat16, 1, 1, 1, 128, 4096)[0] > 8
+    assert DK.launch_plan(dev, torch.bfloat16, 1, 2, 4, 80, 8001)[0] > 8
+    assert DK.launch_plan(dev, torch.bfloat16, 64, 64, 1, 128, 4096)[0] \
+        == 1
 
 
 # ------------------------------------------- the decode kernel's partial mode

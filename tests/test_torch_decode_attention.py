@@ -122,26 +122,36 @@ def test_decode_ops_dispatch_by_device():
 LOG2E = 1.4426950408889634
 
 
-def _split_mirror(q, k, v, pos, window=0, sms=132, tile=8):
+def _split_mirror(q, k, v, pos, window=0, sms=132, blocks_per_sm=2,
+                  warps=4, tile=16):
     """Plain-PyTorch mirror of ``csrc/decode_attention.cu``: the valid
-    positions cut by ``split_plan`` into splits (none empty); in each, an
-    online softmax in base 2 over tiles of ``tile`` positions (one max and
-    rescale a tile); the splits' (m, l, acc) merged by log-sum-exp."""
+    positions cut by ``split_plan`` (B K ceil(G / 8) groups on ``sms``
+    SMs of ``blocks_per_sm`` blocks) into splits, none empty; in each
+    split, warp w takes the split's tiles w, w + warps, ... of ``tile``
+    positions (the ring's slots) and runs an online softmax in base 2 over
+    them: the float32 scores q.k scaled by hd^-0.5 log2 e, one max and one
+    rescale a tile; the block merges its warps' (m, l, acc) in warp order
+    (a warp that saw no tile weighs nothing), and the splits' float32
+    partials are merged by log-sum-exp in split order, 8 at a time (the
+    running max and sums rescaled once a batch)."""
     from repro_torch.kernels.decode_attention.kernel import split_plan, \
         valid_range
     B, S, K, hd = k.shape
+    G = q.shape[2]
     lo, hi, uniform = valid_range(S, pos, window)
-    splits, L = split_plan(hi - lo + 1, B * K, sms)
-    qs = q.float() * float(np.float32(hd ** -0.5)) * LOG2E
-    parts = []
-    for sp in range(splits):
-        a, e = lo + sp * L, min(hi + 1, lo + (sp + 1) * L)
-        m = torch.full(q.shape[:3], float("-inf"))
-        l = torch.zeros(q.shape[:3])
+    splits, L = split_plan(hi - lo + 1, B * K * -(-G // 8), sms,
+                           blocks_per_sm)
+    qscale = float(np.float32(hd ** -0.5)) * LOG2E
+    qf = q.float()
+    shape = q.shape[:3]
+
+    def warp_pass(tiles):
+        m = torch.full(shape, float("-inf"))
+        l = torch.zeros(shape)
         acc = torch.zeros(q.shape, dtype=torch.float32)
-        for t0 in range(a, e, tile):
-            kt, vt = (x[:, t0:min(e, t0 + tile)].float() for x in (k, v))
-            s = torch.einsum("bkgh,btkh->bkgt", qs, kt)
+        for t0, t1 in tiles:
+            kt, vt = (x[:, t0:t1].float() for x in (k, v))
+            s = torch.einsum("bkgh,btkh->bkgt", qf, kt) * qscale
             if uniform:
                 s = torch.zeros_like(s)
             mn = torch.maximum(m, s.amax(-1))
@@ -151,29 +161,59 @@ def _split_mirror(q, k, v, pos, window=0, sms=132, tile=8):
             acc = acc * alpha[..., None] + torch.einsum("bkgt,btkh->bkgh",
                                                         p, vt)
             m = mn
-        parts.append((m, l, acc))
-    M = torch.stack([m for m, _, _ in parts]).amax(0)
-    lsum = torch.zeros_like(M)
+        return m, l, acc
+
+    parts = []
+    for sp in range(splits):
+        a, e = lo + sp * L, min(hi + 1, lo + (sp + 1) * L)
+        starts = list(range(a, e, tile))
+        ws = [warp_pass([(t, min(e, t + tile)) for t in starts[w::warps]])
+              for w in range(warps)]
+        ws = [x for x, t in zip(ws, range(warps)) if t < len(starts)]
+        mx = torch.stack([m for m, _, _ in ws]).amax(0)
+        lsum = torch.zeros_like(mx)
+        acc = torch.zeros(q.shape, dtype=torch.float32)
+        for m, l, a_ in ws:
+            c = torch.exp2(m - mx)
+            lsum = lsum + l * c
+            acc = acc + a_ * c[..., None]
+        parts.append((mx, lsum, acc))
+    M = torch.full(shape, float("-inf"))
+    lsum = torch.zeros(shape)
     out = torch.zeros(q.shape, dtype=torch.float32)
-    for m, l, acc in parts:
-        c = torch.exp2(m - M)
-        lsum = lsum + l * c
-        out = out + acc * c[..., None]
+    for b0 in range(0, splits, 8):           # the merge's batches of 8
+        batch = parts[b0:b0 + 8]
+        mn = torch.stack([M] + [m for m, _, _ in batch]).amax(0)
+        r = torch.exp2(M - mn)
+        lsum, out = lsum * r, out * r[..., None]
+        for m, l, acc in batch:
+            c = torch.exp2(m - mn)
+            lsum = lsum + l * c
+            out = out + acc * c[..., None]
+        M = mn
     return (out / lsum.clamp_min(1e-30)[..., None]).to(q.dtype), splits
 
 
-# (B, S, K, G, hd, window, pos, splits): the wrapper's plan on 132 SMs
-# (several splits, a ragged last split, one split), pos inside what
-# would be the first split, a window cut into splits, the uniform case
-# over several splits, G 8, hd 80
+# (B, S, K, G, hd, window, pos, splits): the wrapper's plan on 132 SMs of
+# 2 blocks (several splits, a ragged last split, one split), pos inside
+# what would be the first split, a window cut into splits, the uniform
+# case over several splits, G 8, hd 80; then plans of more than 8 splits
+# (K 1 over 4,096 positions: 128), G exactly 2, 4 and 8 at hd 80, K 1, G
+# above 8 (two blocks of query rows), and a window over tens of splits
 SPLIT_CASES = [
-    (2, 256, 2, 2, 64, 0, 255, 4),
-    (1, 200, 2, 1, 64, 0, 199, 3),
+    (2, 256, 2, 2, 64, 0, 255, 8),
+    (1, 200, 2, 1, 64, 0, 199, 6),
     (2, 37, 2, 2, 16, 0, 36, 1),
     (1, 256, 2, 2, 64, 0, 10, 1),
-    (1, 256, 2, 1, 128, 150, 200, 2),
-    (1, 300, 2, 2, 16, 0, -1, 4),
-    (1, 150, 1, 8, 80, 0, 149, 2),
+    (1, 256, 2, 1, 128, 150, 200, 4),
+    (1, 300, 2, 2, 16, 0, -1, 9),
+    (1, 150, 1, 8, 80, 0, 149, 4),
+    (1, 4096, 1, 1, 128, 0, 4095, 128),
+    (1, 2048, 2, 2, 80, 0, 2047, 64),
+    (1, 1024, 1, 4, 80, 0, 1000, 31),
+    (2, 600, 1, 8, 80, 0, 599, 18),
+    (1, 700, 1, 12, 64, 0, 650, 20),
+    (1, 3000, 2, 2, 128, 1000, 2900, 31),
 ]
 
 
@@ -198,15 +238,27 @@ def test_split_kv_mirror_matches_reference(B, S, K, G, hd, window, pos,
 
 @pytest.mark.parametrize("n,groups,sms", [
     (1055, 64, 132), (1, 64, 132), (129, 64, 132), (1000, 2, 132),
-    (64, 1, 132), (100000, 1, 132), (500, 600, 132), (1055, 64, 114)])
+    (64, 1, 132), (100000, 1, 132), (500, 600, 132), (1055, 64, 114),
+    (280, 2, 132), (4096, 16, 132), (20001, 64, 132), (8192, 64, 132),
+    (2048, 32, 132), (4096, 1, 132), (31, 1, 132)])
 def test_split_plan_covers_every_position(n, groups, sms):
     """Every valid position in exactly one split, no split empty, none
-    shorter than MIN_SPLIT unless there is one, at most MAX_SPLITS (one
-    cluster), and no more blocks than the plan aims at."""
+    shorter than MIN_SPLIT unless there is one, at most MAX_SPLITS, no
+    more blocks than fit on the SMs at once, and the largest such count
+    (the plan aims at the SMs: one more split would break a limit)."""
     from repro_torch.kernels.decode_attention.kernel import BLOCKS_PER_SM, \
         MAX_SPLITS, MIN_SPLIT, split_plan
-    splits, L = split_plan(n, groups, sms)
-    assert (splits - 1) * L < n <= splits * L
-    assert 1 <= splits <= MAX_SPLITS
-    assert splits == 1 or L >= MIN_SPLIT
-    assert splits == 1 or groups * splits <= BLOCKS_PER_SM * sms
+    for bps in sorted({1, BLOCKS_PER_SM, 4}):
+        splits, L = split_plan(n, groups, sms, bps)
+        assert (splits - 1) * L < n <= splits * L
+        covered = np.zeros(n, np.int64)
+        for sp in range(splits):
+            assert sp * L < min(n, (sp + 1) * L)        # none empty
+            covered[sp * L:(sp + 1) * L] += 1
+        assert (covered == 1).all()
+        assert 1 <= splits <= MAX_SPLITS
+        assert splits == 1 or L >= MIN_SPLIT
+        assert splits == 1 or groups * splits <= bps * sms
+        more = splits + 1
+        assert (more > MAX_SPLITS or groups * more > bps * sms
+                or n // more < MIN_SPLIT or -(-n // -(-n // more)) <= splits)

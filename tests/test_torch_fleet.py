@@ -306,6 +306,7 @@ def _port_files():
               ROOT / "profile_serve.py", ROOT / "profile_clear.py",
               ROOT / "profile_route.py", ROOT / "profile_train.py",
               ROOT / "profile_trainer.py", ROOT / "profile_ssd.py",
+              ROOT / "profile_decode.py",
               ROOT / "tests" / "torch_schema_cases.py",
               ROOT / "tests" / "torch_serve_check.py"]
     return files
